@@ -1,0 +1,373 @@
+#!/usr/bin/env python
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (each prints one JSON line; any failure exits non-zero):
+
+0. the card: ``nvidia-smi`` name and power limit, torch's device name;
+1. build every CUDA kernel from procgen_torch/csrc (one nvcc each, started
+   together) into procgen_torch/_build;
+2. each kernel against its plain PyTorch version on synthetic inputs
+   (compositor: N=512, E=40, every z_filter, binary and fractional alpha):
+   bitwise equal;
+3. the port on the card against the port on the CPU (whose plain versions
+   the CPU tests hold against the JAX package): maze hard, 8 envs, 40 steps,
+   every state field and every frame bitwise equal;
+4. the main path: maze hard, 4096 envs, refill bucket 512, generated assets,
+   seed 123: cold start, then 200 rendered steps with random actions; every
+   frame composited by the kernel (launches == frames), frames not black,
+   the final frames through the kernel and through the plain version
+   bitwise equal;
+5. timing (CUDA events / synchronized host clock): env-steps/s, the kernel's
+   ms per launch at the main path's shapes beside its plain version and its
+   bound, the step's split between refill and frame, and device time by
+   kernel from a short profiler window.
+
+The last three lines are the card's name and power limit, the kernels line,
+and ``{"ok": true, "device": {...}}``.  The script needs CUDA; without it, it
+exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import types
+
+import numpy as np
+import torch
+
+from procgen_torch import convert, cuda_build
+from procgen_torch.config import DistributionMode, EnvConfig
+from procgen_torch.games import make_game
+from procgen_torch.parallel.fast import REFILL_SPAN, make_fast_fns
+from procgen_torch.render import compositor, fast2
+from procgen_torch.render.pack import RenderPack
+from procgen_torch.state import seeded_template
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and f32 rate
+# outside the tensor cores, at the 700 W power limit.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# f32 ops per (pixel, drawn record) in the compositor: col/row sub+div,
+# tiling, texel scale, premultiply, 3 channels of mul+add+sub
+FLOPS_PER_PIXEL_RECORD = 20
+
+FRAME_SPAN = "chip_smoke.frame"
+N_ENVS = 4096
+STEPS = 200
+WARMUP = 10
+
+
+def emit(phase: str, **kw):
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def maze_cfg(n: int) -> EnvConfig:
+    return EnvConfig(
+        env_name="maze", num_envs=n, distribution_mode=DistributionMode.hard,
+        rand_seed=123, use_generated_assets=True,
+    )
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean wall ms per call, synchronized, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device ms per call over ``iters`` calls, after one warm-up."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_kernels_vs_plain(dev):
+    """Compositor kernel vs plain version on synthetic records."""
+    checks = []
+    for binary in (True, False):
+        rec, atlas, canvas = compositor.synthetic_case(512, 40, 20, 32, seed=5, binary_alpha=binary)
+        tables = types.SimpleNamespace(var_mips=torch.as_tensor(atlas, device=dev))
+        rec_t = torch.as_tensor(rec, device=dev)
+        canvas_t = torch.as_tensor(canvas, device=dev)
+        for z_filter in ("all", "neg", "nonneg"):
+            for kmax in (40, 17):
+                k = compositor.composite_entities(tables, rec_t, kmax, canvas_t, z_filter)
+                p = compositor.composite_entities_ref(tables, rec_t, kmax, canvas_t, z_filter)
+                torch.cuda.synchronize()
+                eq = bitwise_equal(k, p)
+                drew = float((k != canvas_t).float().mean())
+                checks.append(dict(binary_alpha=binary, z_filter=z_filter, kmax=kmax,
+                                   bitwise_equal=eq, drawn_share=drew,
+                                   max_abs_err=float((k - p).abs().max())))
+                if not eq or drew < 0.01:
+                    raise AssertionError(f"compositor kernel vs plain failed: {checks[-1]}")
+    emit("kernel_vs_plain", kernel="composite_entities", shape=[512, 40], cases=checks)
+
+
+def phase_card_vs_cpu(dev):
+    """The port on the card against the port on the CPU, small input, with
+    forced resets (action -1) so that levels are swapped in."""
+    n, steps = 8, 40
+    cfg = maze_cfg(n)
+    gd = make_game(cfg)
+    pack = RenderPack(gd, cfg)
+    runs = {}
+    for d in ("cpu", dev):
+        init, step = make_fast_fns(gd, cfg, pack, refill_bucket=4)
+        fs = init.cold(seeded_template(gd, cfg, n, device=d))
+        rs = np.random.RandomState(9)
+        frames, states = [], []
+        for t in range(steps):
+            a = rs.randint(0, 15, size=n).astype(np.int32)
+            if t in (12, 13, 30):  # forced resets run the queue swap
+                a[:] = -1
+            acts = torch.as_tensor(a, device=d)
+            fs = step(fs, acts)
+            frames.append(fast2.render_frames2(gd, cfg, fs.state, pack).cpu())
+            states.append(convert.fast_state_to_numpy(fs))
+        runs[d] = (frames, states)
+    (f_cpu, s_cpu), (f_gpu, s_gpu) = runs["cpu"], runs[dev]
+    dones = 0
+    for t in range(steps):
+        if not torch.equal(f_cpu[t], f_gpu[t]):
+            raise AssertionError(f"card frame differs from CPU frame at step {t}")
+        for k, a in s_cpu[t].items():
+            b = s_gpu[t][k]
+            if a.dtype == np.float32:
+                a, b = a.view(np.int32), b.view(np.int32)
+            if not np.array_equal(a, b):
+                raise AssertionError(f"card state {k} differs from CPU at step {t}")
+        dones += int(s_cpu[t]["state.done"].sum())
+    emit("card_vs_cpu", envs=n, steps=steps, episodes_ended=dones,
+         fields=len(s_cpu[0]), bitwise_equal=True)
+
+
+def phase_main_path(dev):
+    cfg = maze_cfg(N_ENVS)
+    gd = make_game(cfg)
+    t0 = time.perf_counter()
+    pack = RenderPack(gd, cfg)
+    pack_s = time.perf_counter() - t0
+    init, step = make_fast_fns(gd, cfg, pack, refill_bucket=max(256, N_ENVS // 8))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    checksum = torch.zeros((), dtype=torch.int64, device=dev)
+
+    compositor.launches = 0  # counts start here: the main path's run
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fs = init.cold(seeded_template(gd, cfg, N_ENVS, device=dev))
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    black, frames_rendered = [], 0
+    episodes = torch.zeros((), dtype=torch.int64, device=dev)
+    bucket = max(256, N_ENVS // 8)
+    refills = torch.zeros((), dtype=torch.int64, device=dev)  # timed steps only
+    for t in range(STEPS):
+        if t == WARMUP:
+            torch.cuda.synchronize()
+            t_loop = time.perf_counter()
+        acts = torch.randint(0, 15, (N_ENVS,), generator=gen, device=dev, dtype=torch.int32)
+        valid_before = fs.queue_valid
+        fs = step(fs, acts)
+        if t >= WARMUP:
+            # the step's refill loop ran ceil(need / bucket) bucket refills,
+            # need = envs that finished with an empty queue entry
+            need = (fs.state.done & ~valid_before).sum()
+            refills += torch.div(need + bucket - 1, bucket, rounding_mode="floor")
+        obs = fast2.render_frames2(gd, cfg, fs.state, pack)
+        frames_rendered += 1
+        checksum += obs[:, 31, 31, :].to(torch.int64).sum()
+        episodes += fs.state.done.sum()
+        if t % 50 == 0 or t == STEPS - 1:
+            black.append(float((obs > 0).float().mean()))
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t_loop
+    launches = compositor.launches  # counts read here
+    if launches != frames_rendered:
+        raise AssertionError(f"compositor launches {launches} != frames {frames_rendered}")
+    if min(black) < 0.9:
+        raise AssertionError(f"frames look black: non-zero share {black}")
+    sps = N_ENVS * (STEPS - WARMUP) / loop_s
+    emit("main_path", game="maze", mode="hard", num_envs=N_ENVS, steps=STEPS,
+         refill_bucket=max(256, N_ENVS // 8), pack_build_s=pack_s, cold_start_s=cold_s,
+         timed_steps=STEPS - WARMUP, env_steps_per_s=sps, launches=launches,
+         frames=frames_rendered, episodes_ended=int(episodes),
+         nonzero_pixel_share=black, checksum=int(checksum))
+    refills_per_step = int(refills) / (STEPS - WARMUP)
+    return gd, cfg, pack, fs, init, step, gen, launches, sps, refills_per_step
+
+
+def phase_final_frames(gd, cfg, pack, fs, dev):
+    """Final state through the kernel and through the plain version."""
+    states = fs.state
+    tables = fast2.get_tables(gd, cfg, pack, dev)
+    records, kmax = fast2.entity_records(gd, cfg, states, tables)
+    records = fast2._pad_records(records).contiguous()
+    canvas = states.static_layer.to(torch.float32)
+    before = compositor.launches
+    k = compositor.composite_entities(tables, records, kmax, canvas)
+    p = compositor.composite_entities_ref(tables, records, kmax, canvas)
+    frames = fast2.render_frames2(gd, cfg, states, pack)
+    torch.cuda.synchronize()
+    if compositor.launches != before + 2:
+        raise AssertionError("final-frame check did not launch the kernel")
+    eq = bitwise_equal(k, p) and torch.equal(fast2.to_frames(k), fast2.to_frames(p))
+    if not eq or not torch.equal(frames, fast2.to_frames(k)):
+        raise AssertionError("final frames: kernel, plain version and render_frames2 disagree")
+    err = float((k - p).abs().max())
+    emit("final_frames", bitwise_equal=True, max_abs_err=err, shape=list(records.shape))
+    return tables, records, kmax, canvas, err
+
+
+def phase_timing(gd, cfg, pack, fs, init, step, gen, sps, refills_per_step, tables,
+                 records, kmax, canvas, dev):
+    N, E, _ = records.shape
+    kern_ms = cuda_ms(lambda: compositor.composite_entities(tables, records, kmax, canvas), 50)
+    plain_ms = cuda_ms(lambda: compositor.composite_entities_ref(tables, records, kmax, canvas), 10)
+    # bound: each input read once, each output written once; operations on
+    # the records this run actually draws
+    drawn = int((records[..., 7] > 0).sum())
+    nbytes = (records.numel() * 4 + tables.var_mips.numel() + 4
+              + canvas.numel() * 4 * 2)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = drawn * 64 * 64 * FLOPS_PER_PIXEL_RECORD / PEAK_F32_FLOPS * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+
+    # where a step's time goes.  Unprofiled: the whole step and the refills
+    # per step (from the main path), one frame and one refill at the bucket
+    # size, each timed alone on a synchronized host clock.  Profiled: a short
+    # window with spans for the refill (inside make_fast_fns) and the frame
+    # (here), for device time by kernel and torch ops per span.
+    step_ms = N / sps * 1e3
+    frame_ms = host_ms(lambda: fast2.render_frames2(gd, cfg, fs.state, pack), 10)
+    bucket_states = seeded_template(gd, cfg, max(256, N // 8), device=dev)
+    refill_ms = host_ms(lambda: init.cold(bucket_states), 3)
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    window = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(window):
+            acts = torch.randint(0, 15, (N,), generator=gen, device=dev, dtype=torch.int32)
+            fs = step(fs, acts)
+            with record_function(FRAME_SPAN):
+                fast2.render_frames2(gd, cfg, fs.state, pack)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    spans = {e.key: e for e in events if e.key in (REFILL_SPAN, FRAME_SPAN)
+             and str(e.device_type).endswith("CPU")}
+    refills = spans[REFILL_SPAN].count if REFILL_SPAN in spans else 0
+    kernels = [e for e in events if e.key not in (REFILL_SPAN, FRAME_SPAN)
+               and str(e.device_type).endswith("CUDA")]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    comp_us = sum(e.self_device_time_total for e in kernels if "composite_kernel" in e.key)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    # torch ops launched directly inside each span (one or more kernels each)
+    ops = {REFILL_SPAN: 0, FRAME_SPAN: 0}
+    ops_outside = 0
+    for e in prof.events():
+        if e.cpu_parent is not None and e.cpu_parent.name in ops:
+            ops[e.cpu_parent.name] += 1
+        elif e.cpu_parent is None and e.name not in ops and e.name.startswith("aten::"):
+            ops_outside += 1
+    emit("timing", kernel_ms=kern_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+         bound_by=bound_by, bytes=nbytes, bytes_bound_ms=bytes_ms,
+         ops_bound_ms=ops_ms, records=[N, E], drawn_records=drawn,
+         step_ms=step_ms, frame_ms=frame_ms, refill_ms=refill_ms,
+         refills_per_step=refills_per_step,
+         refill_share_est=refills_per_step * refill_ms / step_ms,
+         frame_share_est=frame_ms / step_ms,
+         profiled_steps=window, profiled_refills=refills,
+         profiled_wall_ms=wall_us / 1e3,
+         profiled_span_share={k: e.cpu_time_total / wall_us for k, e in spans.items()},
+         profiled_device_busy_share=dev_us / wall_us,
+         compositor_device_ms_per_step=comp_us / 1e3 / window,
+         torch_ops_per_refill=ops.get(REFILL_SPAN, 0) / max(refills, 1),
+         torch_ops_per_frame=ops.get(FRAME_SPAN, 0) / window,
+         torch_ops_per_step_outside_spans=ops_outside / window,
+         top_device_kernels=[[e.key[:60], e.self_device_time_total / 1e3] for e in top])
+    return kern_ms, plain_ms, bound_ms, bound_by
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    dev = "cuda"
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    emit("card", nvidia_smi=card, torch_device=kind, count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda)
+
+    built = cuda_build.build_all()
+    emit("build", kernels={n: {"seconds": r["seconds"], "ptxas": [
+        ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]}
+        for n, r in built.items()})
+
+    phase_kernels_vs_plain(dev)
+    phase_card_vs_cpu(dev)
+    gd, cfg, pack, fs, init, step, gen, launches, sps, refills_per_step = phase_main_path(dev)
+    tables, records, kmax, canvas, err = phase_final_frames(gd, cfg, pack, fs, dev)
+    kern_ms, plain_ms, bound_ms, bound_by = phase_timing(
+        gd, cfg, pack, fs, init, step, gen, sps, refills_per_step, tables, records, kmax,
+        canvas, dev,
+    )
+
+    print(card, flush=True)
+    print(json.dumps({"kernels": [{
+        "name": "composite_entities",
+        "route": "cuda",
+        "source": "procgen_torch/csrc/compositor.cu",
+        "replaces": "procgen_tpu/render/pallas_compositor.py:53",
+        "tpu_source": "procgen_tpu/render/pallas_compositor.py:_kernel",
+        "launches": launches,
+        "bitwise_equal": True,
+        "max_abs_err": err,
+        "ms": kern_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

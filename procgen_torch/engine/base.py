@@ -1,0 +1,347 @@
+"""GameDef: the per-game behavior contract, plus the BasicAbstractGame-level
+step/reset bodies shared by all games (counterpart of
+``procgen_tpu/engine/base.py``).
+
+A GameDef holds a game's constants as class attributes and its virtual
+methods as functions ``(cfg, state, ...) -> state`` over a whole batch: every
+hook receives and returns batched state (leading env axis N).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from procgen_torch import objects as O
+from procgen_torch import rng as R
+from procgen_torch.engine import entity_ops as eo
+from procgen_torch.engine import physics as ph
+from procgen_torch.fmath import dmul, f32, fadd32, fmuladd32
+from procgen_torch.state import (
+    F32,
+    EnvState,
+    default_entity_fields,
+    empty_entity_table,
+)
+
+MAXVTHETA = f32(15 * 3.141592653589793 / 180)  # bag.cpp:6 (float const)
+MIXRATEROT = f32(0.5)  # bag.cpp:7
+
+# Background image counts per group (render/assets.py BACKGROUND_GROUPS of
+# the reference package); the PNGs themselves are not needed for levelgen.
+BACKGROUND_GROUP_SIZES = {
+    "space_backgrounds": 13,
+    "platform_backgrounds": 62,
+    "topdown_backgrounds": 9,
+    "topdown_simple_backgrounds": 1,
+    "water_backgrounds": 7,
+    "water_surface_backgrounds": 4,
+}
+
+
+class GameDef:
+    """Base per-game definition with BasicAbstractGame defaults
+    (ctor values: basic-abstract-game.cpp:22-46, game.cpp:25-37)."""
+
+    name: str = "?"
+
+    # Game-level constants
+    timeout: int = 1000
+    default_action: int = 4  # bag.cpp:38
+
+    # Static capacities (tensor shapes)
+    world_w_max: int = 64
+    world_h_max: int = 64
+    max_entities: int = 16
+    max_substeps: int = 12
+
+    # Physics feature gates
+    agent_only_smart: bool = True
+    block_zeroes_velocity_types: tuple = ()
+    uses_entity_reflect: bool = False
+    uses_entity_block: bool = False
+    uses_entity_push: bool = False
+    uses_pair_collisions: bool = False
+    smart_entities_grid_collide: bool = False
+
+    # BasicAbstractGame ctor values
+    char_dim: float = 5.0
+    visibility: float = 16.0
+    min_visibility: float = 0.0
+    mixrate: float = 0.5
+    maxspeed: float = 0.5
+    max_jump: float = 0.5
+    random_agent_start: bool = True
+    has_useful_vel_info: bool = True
+    out_of_bounds_object: int = O.INVALID_OBJ
+    bg_tile_ratio: float = 0.0
+
+    # ---- rendering declarations ----
+    background_group: str = "topdown_backgrounds"
+    entity_rotations: str = "none"  # "none" / "axis" / "free"
+    grid_dynamic: bool = False
+
+    # Worst-case RNG draws consumed by one reset (sizes the prefetch block).
+    reset_max_draws: int = 512
+
+    def image_rect_adjust(self, img_type):
+        """get_adjusted_image_rect (bag.cpp:807-809) as (ox, oy, sw, sh)
+        fractions, or None."""
+        return None
+
+    def tile_ratio_for(self, img_type, rx=None, ry=None):
+        """get_tile_aspect_ratio (bag.cpp:409-411), or None when the game
+        never tiles."""
+        return None
+
+    @property
+    def num_backgrounds(self) -> int:
+        return BACKGROUND_GROUP_SIZES[self.background_group]
+
+    def asset_map(self, cfg) -> dict:
+        """type -> theme-ordered sprite paths (asset_for_type)."""
+        return {}
+
+    def should_preserve_type_themes(self, type_: int) -> bool:
+        """Types whose themes survive restrict_themes (bag.cpp:446-453)."""
+        return False
+
+    def use_block_asset(self, type_: int) -> bool:
+        """Generated assets of this type paint as full-canvas blocks
+        (bag.cpp:400-406)."""
+        return False
+
+    def center_agent(self, cfg) -> bool:
+        """Effective options.center_agent (games may force it per mode)."""
+        return cfg.center_agent
+
+    def grid_image_lut(self, cfg):
+        from procgen_torch.render import pack
+
+        return pack.default_grid_image_lut()
+
+    def grid_theme_lut(self, cfg):
+        from procgen_torch.render import pack
+
+        return pack.default_grid_theme_lut()
+
+    def grid_cell_types(self, cfg):
+        """Cell types a grid can contain, or None to derive them."""
+        return None
+
+    # dynamic grid theming (theme_for_grid_obj with game state)
+    grid_theme_count: int = 1
+
+    def grid_themed_types(self):
+        return ()
+
+    def grid_theme_state(self, cfg, states):
+        """Per-env theme (N,) for grid_themed_types, or None."""
+        return None
+
+    def grid_color_rect_lut(self, cfg):
+        """draw_grid_obj color-rect overrides: None, or (dim_lut, rgb_lut)."""
+        return None
+
+    def entity_draw_mask(self, cfg, states):
+        """should_draw_entity (bag.cpp:1048-1050) as (N, E) bool, or None."""
+        return None
+
+    def entity_image_override(self, cfg, states):
+        """Dynamic image_for_type for entities: (N, E) image types or None."""
+        return None
+
+    def has_hud(self, cfg) -> bool:
+        """True for games with screen-space overlays (hud_color_rects or
+        hud_overlay in the reference package); none is ported yet."""
+        return False
+
+    # ---- per-game state extras ----
+    def init_extra(self, cfg, num_envs: int, device) -> dict:
+        return {}
+
+    # ---- virtuals (bag.h:34-55) ----
+    def choose_world_dim(self, cfg, state: EnvState) -> EnvState:
+        return state
+
+    def game_reset(self, cfg, state: EnvState, rs):
+        """Level generation; draws through ``rs`` (an open MTBlock).
+        Returns (state, rs)."""
+        return base_game_reset(self, cfg, state, rs)
+
+    def game_step(self, cfg, state: EnvState) -> EnvState:
+        return base_game_step(self, cfg, state)
+
+    def set_action_xy(self, cfg, state, move_action):
+        """bag.cpp:658-662; returns (action_vx, action_vy, action_vrot)."""
+        avx = (torch.div(move_action, 3, rounding_mode="floor") - 1).to(F32)
+        avy = (move_action % 3 - 1).to(F32)
+        return avx, avy, torch.zeros_like(avx)
+
+    def update_agent_velocity(self, cfg, state: EnvState) -> EnvState:
+        """bag.cpp:669-679 (+ decay_agent_velocity :681-684)."""
+        ents = state.ents
+        v_scale = self.get_agent_acceleration_scale(cfg, state)
+        mix = state.mixrate
+        # "vx += mixrate * maxspeed * action_vx * v_scale": the add of the
+        # product chain rounds separately (no FMA on ivybridge)
+        vx = fadd32(
+            cfg, (1 - mix) * ents.vx[:, eo.AGENT],
+            mix * state.maxspeed * state.action_vx * v_scale,
+        )
+        vy = fadd32(
+            cfg, (1 - mix) * ents.vy[:, eo.AGENT],
+            mix * state.maxspeed * state.action_vy * v_scale,
+        )
+        vx = dmul(cfg, vx, 0.9)
+        vy = dmul(cfg, vy, 0.9)
+        return state.replace(ents=eo.write_slot(ents, eo.AGENT, vx=vx, vy=vy))
+
+    def get_agent_acceleration_scale(self, cfg, state):
+        return 1.0
+
+    def is_blocked(self, cfg, state, src_type, target_type, is_horizontal):
+        """bag.cpp:485-492 (vectorized over target types)."""
+        oob = state.out_of_bounds_object.reshape(
+            (-1,) + (1,) * (target_type.dim() - 1)
+        )
+        return (target_type == O.WALL_OBJ) | (target_type == oob)
+
+    def will_reflect(self, cfg, state, src_type, target_type):
+        return torch.zeros(
+            torch.broadcast_shapes(src_type.shape, target_type.shape),
+            dtype=torch.bool, device=target_type.device,
+        )
+
+    def handle_agent_collision(self, cfg, state: EnvState, mask) -> EnvState:
+        """mask: (N, E) bool -- entities currently overlapping the agent."""
+        return state
+
+    def agent_collision_phase(self, cfg, state: EnvState) -> EnvState:
+        """Agent-collision dispatch (bag.cpp:722-724): the collision mask is
+        computed once and handed to handle_agent_collision."""
+        ents = state.ents
+        a = eo.AGENT
+        tx = (ents.rx[:, a:a + 1] + ents.rx) + ents.collision_margin
+        ty = (ents.ry[:, a:a + 1] + ents.ry) + ents.collision_margin
+        mask = (torch.abs(ents.x[:, a:a + 1] - ents.x) < tx) & (
+            torch.abs(ents.y[:, a:a + 1] - ents.y) < ty
+        )
+        mask = mask & ents.alive & (ents.type != O.PLAYER)
+        return self.handle_agent_collision(cfg, state, mask)
+
+    def handle_grid_collision(self, cfg, state, ent_idx, cell_type, cx, cy, valid):
+        return state
+
+    def choose_center(self, cfg, state):
+        """bag.cpp:664-667: view center (and visibility) when
+        options.center_agent.  Returns (cx, cy, visibility)."""
+        return state.ents.x[:, eo.AGENT], state.ents.y[:, eo.AGENT], state.visibility
+
+
+# ---------------------------------------------------------------------------
+# BasicAbstractGame::game_reset (bag.cpp:758-797)
+# ---------------------------------------------------------------------------
+
+
+def base_game_reset(gd: GameDef, cfg, state: EnvState, rs):
+    from procgen_torch.render.pack import PROCGEN_BG_POOL
+
+    state = gd.choose_world_dim(cfg, state)
+    N = state.num_envs
+    dev = state.done.device
+
+    rs, bg_pct_x = R.rs_rand01(rs)
+    # Under use_generated_assets the reference paints one procgen background
+    # per reset (bag.cpp:62-63, 769-773); here a pregenerated pool is
+    # selected per level instead, as the reference package does.
+    n_bgs = PROCGEN_BG_POOL if cfg.use_generated_assets else gd.num_backgrounds
+    rs, background_index = R.rs_randn(rs, n_bgs)
+
+    # entities.clear(); agent spawn (bag.cpp:775-793)
+    a_r = f32(0.4)
+    if gd.random_agent_start:
+        rs, u1 = R.rs_rand01(rs)
+        rs, u2 = R.rs_rand01(rs)
+        # "rand01() * (main_width - 2 * a_r) + a_r", separate roundings
+        ax = fmuladd32(cfg, u1, state.main_width.to(F32) - 2 * a_r, a_r)
+        ay = fmuladd32(cfg, u2, state.main_height.to(F32) - 2 * a_r, a_r)
+    else:
+        ax = a_r
+        ay = a_r
+
+    ents = empty_entity_table(N, gd.max_entities, dev)
+    agent = default_entity_fields(ax, ay, 0.0, 0.0, a_r, a_r, O.PLAYER)
+    agent["smart_step"] = True
+    agent["render_z"] = 1
+    ents = eo.write_slot(ents, eo.AGENT, **agent)
+
+    grid = torch.full_like(state.grid, O.SPACE)
+    return state.replace(
+        bg_pct_x=bg_pct_x,
+        background_index=background_index,
+        ents=ents,
+        grid=grid,
+    ), rs
+
+
+# ---------------------------------------------------------------------------
+# BasicAbstractGame::game_step (bag.cpp:686-746)
+# ---------------------------------------------------------------------------
+
+
+def base_game_step(gd: GameDef, cfg, state: EnvState) -> EnvState:
+    if gd.uses_pair_collisions or gd.smart_entities_grid_collide:
+        raise NotImplementedError(
+            "procgen_torch: pair collisions and smart-entity grid collisions "
+            "are not ported yet"
+        )
+    mt, sri = R.mt_randint(state.rng, 0, 1000000)
+    action = state.action
+    move = action % 9
+    special = torch.where(action >= 9, action - 8, 0)
+    move = torch.where(action >= 9, 4, move)
+    last_move = torch.where(move != 4, move, state.last_move_action)
+    zero = torch.zeros_like(state.action_vx)
+    state = state.replace(
+        rng=mt,
+        step_rand_int=sri,
+        move_action=move,
+        special_action=special,
+        last_move_action=last_move,
+        action_vx=zero,
+        action_vy=zero,
+        action_vrot=zero,
+    )
+    avx, avy, avrot = gd.set_action_xy(cfg, state, move)
+    state = state.replace(action_vx=avx, action_vy=avy, action_vrot=avrot)
+
+    # Agent velocity: the grid path writes action velocities directly, the
+    # continuous path mixes (bag.cpp:707-715); compute both and select.
+    cont_state = gd.update_agent_velocity(cfg, state)
+    cont_vrot = (
+        MIXRATEROT * state.ents.vrot[:, eo.AGENT] + MIXRATEROT * MAXVTHETA * avrot
+    )
+    gs = state.grid_step
+    new_vx = torch.where(gs, avx, cont_state.ents.vx[:, eo.AGENT])
+    new_vy = torch.where(gs, avy, cont_state.ents.vy[:, eo.AGENT])
+    new_vrot = torch.where(gs, state.ents.vrot[:, eo.AGENT], cont_vrot)
+    state = cont_state.replace(
+        ents=eo.write_slot(
+            cont_state.ents, eo.AGENT, vx=new_vx, vy=new_vy, vrot=new_vrot
+        )
+    )
+
+    state = ph.step_entities(gd, cfg, state)
+
+    # collision dispatch (bag.cpp:719-741), phased as in the reference package
+    state = gd.agent_collision_phase(cfg, state)
+    state = ph.check_grid_collisions(gd, cfg, state, eo.AGENT)
+
+    # erase + OOB (bag.cpp:743-745)
+    ents = eo.compact(state.ents, state.main_width, state.main_height)
+    a = eo.AGENT
+    agent_oob = eo.is_out_of_bounds(
+        ents.x[:, a], ents.y[:, a], ents.rx[:, a], ents.ry[:, a],
+        state.main_width, state.main_height,
+    )
+    return state.replace(ents=ents, done=state.done | agent_oob)

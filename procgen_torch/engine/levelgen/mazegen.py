@@ -1,0 +1,195 @@
+"""Kruskal maze generation (reference procgen/src/mazegen.cpp); counterpart
+of ``procgen_tpu/engine/levelgen/mazegen.py``, batched over a leading env
+axis B.
+
+* the wall list is built for the maximum dim and stably compacted per env to
+  the reference's construction order (verticals i-major, then horizontals,
+  mazegen.cpp:138-151);
+* ``vector::erase`` of a random wall becomes a ``removed`` bitmap: the
+  logical index drawn by ``randn(walls.size())`` maps to the n-th surviving
+  wall through a cumulative count;
+* set partitions are a per-cell label array; merging set s0 into s1 is a
+  relabel.
+
+Loop trip counts are fixed (W_MAX iterations, inactive tail masked) and
+draws are masked, so each env consumes exactly the reference's stream.
+The no-dead-end and door variants (mazegen.cpp:189-289) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from procgen_torch import objects as O
+from procgen_torch import rng as R
+from procgen_torch.state import I32
+
+MAZE_OFFSET = 1  # mazegen.h
+
+
+@dataclasses.dataclass
+class MazeResult:
+    rng: R.MTBlock
+    grid: torch.Tensor  # int32 (B, AD, AD) indexed [y, x]; AD = max_dim + 2
+    free_cells: torch.Tensor  # int32 (B, max_dim**2) in insertion order
+    num_free_cells: torch.Tensor  # int32 (B,)
+
+    def replace(self, **kw) -> "MazeResult":
+        return dataclasses.replace(self, **kw)
+
+
+def _static_wall_table(max_dim: int):
+    """Wall candidates for the maximum dim, in reference construction order.
+
+    Returns (coords (Wmax, 4) [x1, y1, x2, y2], cond_ij (Wmax, 2), is_vertical
+    (Wmax,)); validity for an actual ``maze_dim`` is evaluated per env.
+    Vertical group (mazegen.cpp:138-144): i odd, j even, wall (i-1,j,i+1,j).
+    Horizontal group (:146-151): i even, j odd, wall (i,j-1,i,j+1).
+    """
+    walls = []
+    conds = []
+    for i in range(1, max_dim, 2):
+        for j in range(0, max_dim, 2):
+            walls.append((i - 1, j, i + 1, j))
+            conds.append((i, j))
+    n_v = len(walls)
+    for i in range(0, max_dim, 2):
+        for j in range(1, max_dim, 2):
+            walls.append((i, j - 1, i, j + 1))
+            conds.append((i, j))
+    coords = np.asarray(walls, np.int64)
+    cond_ij = np.asarray(conds, np.int64)
+    is_vertical = np.arange(len(walls)) < n_v
+    return coords, cond_ij, is_vertical
+
+
+@functools.lru_cache(maxsize=None)
+def _wall_tables(max_dim: int, device: str):
+    """Device copies of the wall table: (coords, i, j, odd coordinate)."""
+    coords, cond_ij, is_vertical = _static_wall_table(max_dim)
+    odd = np.where(is_vertical, cond_ij[:, 0], cond_ij[:, 1])
+    return tuple(
+        torch.as_tensor(a, device=device)
+        for a in (coords, cond_ij[:, 0], cond_ij[:, 1], odd)
+    )
+
+
+def _set_free_cell(grid, free_cells, in_free_set, num_free, md, x, y, do):
+    """mazegen.cpp:26-34, applied where ``do`` (all (B,) except the tables)."""
+    B, AD, _ = grid.shape
+    NC = free_cells.shape[1]
+    b = torch.arange(B, device=grid.device)
+    gy, gx = y + MAZE_OFFSET, x + MAZE_OFFSET
+    grid[b, gy, gx] = torch.where(do, O.SPACE, grid[b, gy, gx])
+    cell = md * y + x
+    cellc = cell.clamp(0, NC - 1)
+    is_new = do & ~in_free_set[b, cellc]
+    slot = num_free.clamp(0, NC - 1)
+    free_cells[b, slot] = torch.where(is_new, cell.to(I32), free_cells[b, slot])
+    in_free_set[b, cellc] = in_free_set[b, cellc] | is_new
+    return num_free + is_new.to(I32)
+
+
+def generate_maze(rs: R.MTBlock, maze_dim, max_dim: int) -> MazeResult:
+    """mazegen.cpp:112-187 for a batch; ``maze_dim`` (B,) odd, 3..max_dim."""
+    dev = rs.cursor.device
+    B = rs.cursor.shape[0]
+    AD = max_dim + 2
+    NC = max_dim * max_dim
+    b = torch.arange(B, device=dev)
+
+    grid = torch.full((B, AD, AD), O.WALL_OBJ, dtype=I32, device=dev)
+    grid[:, MAZE_OFFSET, MAZE_OFFSET] = 0  # cell (0,0) := 0 (:119)
+    labels = torch.arange(NC, dtype=torch.int64, device=dev).repeat(B, 1)
+    free_cells = torch.zeros((B, NC), dtype=I32, device=dev)
+    in_free_set = torch.zeros((B, NC), dtype=torch.bool, device=dev)
+    num_free = torch.zeros((B,), dtype=I32, device=dev)
+
+    coords, cond_i, cond_j, odd_c = _wall_tables(max_dim, str(dev))
+    W_MAX = coords.shape[0]
+    # validity vs the actual maze_dim: loop bounds i, j < maze_dim plus the
+    # interior guard 0 < odd coordinate < maze_dim - 1
+    md = maze_dim.to(torch.int64)
+    mdc = md[:, None]
+    valid = (cond_i < mdc) & (cond_j < mdc) & (odd_c < mdc - 1) & (odd_c > 0)
+
+    # stable compaction to reference order (entries past n_walls never read)
+    order = torch.sort((~valid).to(torch.uint8), dim=1, stable=True).indices
+    walls = coords[order]  # (B, W_MAX, 4)
+    n_walls = valid.to(torch.int64).sum(1)
+
+    removed = torch.zeros((B, W_MAX), dtype=torch.bool, device=dev)
+    for k in range(W_MAX):
+        active = k < n_walls
+        remaining = n_walls - k
+        rs, n = R.rs_randn(rs, remaining.clamp(min=1), active=active)
+        # logical n -> physical index among surviving walls, original order
+        alive_pos = torch.cumsum((~removed).to(torch.int64), 1) - 1
+        match = ~removed & (alive_pos == n[:, None].to(torch.int64))
+        phys = torch.argmax(match.to(torch.uint8), 1)
+        w = walls[b, phys]
+        x1, y1, x2, y2 = w[:, 0], w[:, 1], w[:, 2], w[:, 3]
+        s0 = labels[b, (md * y1 + x1).clamp(0, NC - 1)]
+        s1 = labels[b, (md * y2 + x2).clamp(0, NC - 1)]
+        x0 = torch.div(x1 + x2, 2, rounding_mode="floor")
+        y0 = torch.div(y1 + y2, 2, rounding_mode="floor")
+        center = md * y0 + x0
+        can_remove = (grid[b, y0 + MAZE_OFFSET, x0 + MAZE_OFFSET] == O.WALL_OBJ) & (
+            s0 != s1
+        )
+        do = active & can_remove
+
+        for cx, cy in ((x1, y1), (x0, y0), (x2, y2)):
+            num_free = _set_free_cell(
+                grid, free_cells, in_free_set, num_free, md, cx, cy, do
+            )
+
+        # merge s0 -> s1 and add center (mazegen.cpp:176-183)
+        labels = torch.where(do[:, None] & (labels == s0[:, None]), s1[:, None], labels)
+        cc = center.clamp(0, NC - 1)
+        labels[b, cc] = torch.where(do, s1, labels[b, cc])
+        removed[b, phys] = removed[b, phys] | active
+    return MazeResult(rs, grid, free_cells, num_free)
+
+
+def place_objects(
+    rs: R.MTBlock,
+    res: MazeResult,
+    start_obj: int,
+    num_objs: int,
+    maze_dim,
+    max_dim: int,
+    max_tries: int = 32,
+):
+    """mazegen.cpp:292-306: place objects on distinct free cells (never cell
+    0, the agent start).  Rejection redraws are bounded by ``max_tries``
+    (P(exhaust) < (k/num_free)^32).  Returns (rs, res) with the objects
+    written into res.grid."""
+    grid = res.grid.clone()
+    free_cells = res.free_cells.clone()
+    NC = max_dim * max_dim
+    B = grid.shape[0]
+    b = torch.arange(B, device=grid.device)
+    md = maze_dim.to(I32)
+
+    def cell_at(m):
+        return free_cells[b, m.clamp(0, NC - 1).to(torch.int64)]
+
+    for j in range(num_objs):
+        rs, m = R.rs_randn(rs, res.num_free_cells)
+        active = torch.ones((B,), dtype=torch.bool, device=grid.device)
+        for _ in range(max_tries):
+            v = cell_at(m)
+            active = active & ((v == -1) | (v == 0))
+            rs, m2 = R.rs_randn(rs, res.num_free_cells, active=active)
+            m = torch.where(active, m2, m)
+        cell = cell_at(m)
+        free_cells[b, m.clamp(0, NC - 1).to(torch.int64)] = -1
+        cx = cell % md + MAZE_OFFSET
+        cy = torch.div(cell, md, rounding_mode="floor") + MAZE_OFFSET
+        grid[b, cy.to(torch.int64), cx.to(torch.int64)] = start_obj + j
+    return rs, res.replace(grid=grid, free_cells=free_cells)

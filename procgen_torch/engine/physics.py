@@ -1,0 +1,283 @@
+"""Sub-stepped grid-collision physics (counterpart of
+``procgen_tpu/engine/physics.py``; reference basic-abstract-game.cpp:270-372
+sub_step, :593-656 basic_step_object, :1086-1098 step_entities).
+
+Batched over a leading env axis.  This slice covers games whose agent is the
+only ``smart_step`` entity and whose movers interact with grid cells only
+(maze); the entity push/reflect/block sweeps and smart enemies arrive with
+the games that use them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from procgen_torch import fmath as fm
+from procgen_torch import objects as O
+from procgen_torch.engine import entity_ops as eo
+from procgen_torch.state import F32, I32, EnvState
+
+POS_EPS = float(np.float32(-0.001))  # bag.cpp:10
+SUB_STEP_MARGIN = float(np.float32(0.98))  # bag.cpp:276
+
+
+def _per_env(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """An (N,) tensor reshaped to broadcast against ``like`` (N, ...)."""
+    return v.reshape(v.shape + (1,) * (like.dim() - v.dim()))
+
+
+# ---------------------------------------------------------------------------
+# Grid access
+# ---------------------------------------------------------------------------
+
+
+def get_obj(state: EnvState, x, y):
+    """bag.cpp:180-185: the cell at integer (x, y), or out_of_bounds_object
+    outside [0, w) x [0, h).  ``x``/``y`` are (N, ...) int tensors."""
+    x = torch.as_tensor(x).to(torch.int64)
+    y = torch.as_tensor(y).to(torch.int64)
+    x, y = torch.broadcast_tensors(x, y)
+    N, H, W = state.grid.shape
+    flat = (y.clamp(0, H - 1) * W + x.clamp(0, W - 1)).reshape(N, -1)
+    val = torch.gather(state.grid.reshape(N, H * W), 1, flat).reshape(x.shape)
+    inside = (
+        (x >= 0) & (x < _per_env(state.main_width, x))
+        & (y >= 0) & (y < _per_env(state.main_height, y))
+    )
+    return torch.where(inside, val, _per_env(state.out_of_bounds_object, x))
+
+
+def get_obj_from_floats(state: EnvState, fx, fy):
+    """bag.cpp:167-174: negative floats -> OOB, else floor to cell."""
+    neg = (fx < 0) | (fy < 0)
+    val = get_obj(state, torch.floor(fx).to(I32), torch.floor(fy).to(I32))
+    return torch.where(neg, _per_env(state.out_of_bounds_object, val), val)
+
+
+def set_obj(state: EnvState, x, y, obj) -> EnvState:
+    """Write ``obj`` at cell (x, y) of every env (x, y, obj: (N,))."""
+    N, H, W = state.grid.shape
+    grid = state.grid.clone().reshape(N, H * W)
+    flat = (torch.as_tensor(y).to(torch.int64) * W + torch.as_tensor(x).to(torch.int64))
+    flat = flat.expand(N)[:, None]
+    obj = torch.as_tensor(obj, device=grid.device).to(I32).expand(N)[:, None]
+    grid.scatter_(1, flat, obj)
+    return state.replace(grid=grid.reshape(N, H, W))
+
+
+# ---------------------------------------------------------------------------
+# sub_step / basic_step_object
+# ---------------------------------------------------------------------------
+
+
+def sub_step(gd, cfg, state: EnvState, idxs, _vx, _vy, active):
+    """One axis-separated sub-step (bag.cpp:270-372) for entity slots
+    ``idxs`` (M ints), all at once.  ``_vx``/``_vy``/``active``: (N, M).
+    Returns (state, blocked (N, M))."""
+    if (gd.uses_entity_push or gd.uses_entity_reflect or gd.uses_entity_block
+            or gd.block_zeroes_velocity_types):
+        raise NotImplementedError(
+            "procgen_torch: entity push/reflect/block sub-steps and blocking "
+            "side effects are not ported yet"
+        )
+    obj = eo.read_slots(
+        state.ents, idxs, ("x", "y", "vx", "vy", "rx", "ry", "type", "will_erase")
+    )
+    active = active & ~obj["will_erase"]
+
+    # "nx = obj->x + _vx" (bag.cpp:274-275): the add rounds separately from
+    # the caller's vx * pct product
+    nx = fm.fadd32(cfg, obj["x"], _vx)
+    ny = fm.fadd32(cfg, obj["y"], _vy)
+    is_horizontal = _vx != 0  # (N, M)
+
+    # 4 corner probes at +-0.98*r (bag.cpp:276), stacked on axis 1
+    rxm = obj["rx"] * SUB_STEP_MARGIN
+    rym = obj["ry"] * SUB_STEP_MARGIN
+    px = torch.stack([nx + rxm * d for d in (-1.0, -1.0, 1.0, 1.0)], 1)  # (N, 4, M)
+    py = torch.stack([ny + rym * d for d in (-1.0, 1.0, -1.0, 1.0)], 1)
+    t2 = get_obj_from_floats(state, px, py)
+    src_type = obj["type"][:, None, :]
+    block = gd.is_blocked(
+        cfg, state, src_type, t2, is_horizontal[:, None, :]
+    ).any(1)
+    reflect = gd.will_reflect(cfg, state, src_type, t2).any(1)
+
+    # Reflection off grid (bag.cpp:292-315)
+    rx, ry = obj["rx"], obj["ry"]
+    delta_x = torch.where(
+        _vx < 0,
+        torch.ceil(nx - rx) - (nx - rx),
+        torch.floor(nx + rx) - (nx + rx),
+    )
+    delta_y = torch.where(
+        _vy < 0,
+        torch.ceil(ny - ry) - (ny - ry),
+        torch.floor(ny + ry) - (ny + ry),
+    )
+    refl_x = torch.where(is_horizontal, nx + 2 * delta_x, nx)
+    refl_y = torch.where(is_horizontal, ny, ny + 2 * delta_y)
+
+    # Blocking clamp (bag.cpp:316-330)
+    gs = state.grid_step[:, None]
+    clamp_x = torch.where(
+        gs,
+        obj["x"],
+        torch.where(_vx > 0, torch.floor(nx + rx) - rx, torch.ceil(nx - rx) + rx),
+    )
+    clamp_y = torch.where(
+        gs,
+        obj["y"],
+        torch.where(_vy > 0, torch.floor(ny + ry) - ry, torch.ceil(ny - ry) + ry),
+    )
+
+    do_block = block & ~reflect
+    nx = torch.where(
+        reflect, refl_x, torch.where(do_block & is_horizontal, clamp_x, nx)
+    )
+    ny = torch.where(
+        reflect, refl_y, torch.where(do_block & ~is_horizontal, clamp_y, ny)
+    )
+    nvx = torch.where(reflect & is_horizontal, -obj["vx"], obj["vx"])
+    nvy = torch.where(reflect & ~is_horizontal, -obj["vy"], obj["vy"])
+
+    ents = eo.write_slots_masked(
+        state.ents, idxs, active, x=nx, y=ny, vx=nvx, vy=nvy
+    )
+    return state.replace(ents=ents), active & block
+
+
+def basic_step_object(gd, cfg, state: EnvState, idxs, active=None) -> EnvState:
+    """bag.cpp:593-656 for entity slots ``idxs`` (M ints), stepped together."""
+    M = len(idxs)
+    N = state.num_envs
+    dev = state.done.device
+    if active is None:
+        active = torch.ones((N, M), dtype=torch.bool, device=dev)
+    obj0 = eo.read_slots(state.ents, idxs, ("vx", "vy", "type", "will_erase"))
+    vx0, vy0 = obj0["vx"], obj0["vy"]
+    active = active & ~obj0["will_erase"]
+
+    # "int(4 * sqrt(vx*vx + vy*vy))": f32 squares and sum, DOUBLE sqrt and
+    # "4 * ..." before the int truncation (bag.cpp:601); "float pct = 1.0 /
+    # num_sub_steps" is a double division narrowed on assignment (:606)
+    s2 = vx0 * vx0 + vy0 * vy0
+    if cfg.parity_mode:
+        nss = (4 * torch.sqrt(s2.double())).to(I32)
+    else:
+        nss = (4 * torch.sqrt(s2)).to(I32)
+    nss = torch.clamp(nss, min=4)
+    nss = torch.where(state.grid_step[:, None], 1, nss)
+    nss = torch.clamp(nss, max=gd.max_substeps)  # static safety cap
+    if cfg.parity_mode:
+        pct = (1.0 / nss.double()).to(F32)
+    else:
+        pct = 1.0 / nss.to(F32)
+
+    cmp = torch.abs(vx0) - torch.abs(vy0)
+    sri_even = (state.step_rand_int % 2 == 0)[:, None]
+    step_x_first = torch.where(cmp == 0, sri_even, cmp > 0)
+    is_player = obj0["type"] == O.PLAYER
+    avx = state.action_vx[:, None]
+    avy = state.action_vy[:, None]
+    step_x_first = torch.where(is_player & (avx != 0), True, step_x_first)
+    step_x_first = torch.where(is_player & (avy != 0), False, step_x_first)
+
+    zero = torch.zeros((N, M), dtype=F32, device=dev)
+    vx_pct, vy_pct = zero, zero
+    broke = torch.zeros((N, M), dtype=torch.bool, device=dev)
+    for s in range(gd.max_substeps):
+        act = active & (s < nss) & ~broke
+        cur = eo.read_slots(state.ents, idxs, ("vx", "vy"))
+        vx = cur["vx"] * pct
+        vy = cur["vy"] * pct
+        # first pass moves along x if step_x_first else y; second the other
+        a1x = torch.where(step_x_first, vx, 0.0)
+        a1y = torch.where(step_x_first, 0.0, vy)
+        state, b1 = sub_step(gd, cfg, state, idxs, a1x, a1y, act)
+        # the reference evaluates "obj->vx * pct" at each sub_step call
+        # (bag.cpp:634-638): re-read after the first axis
+        cur2 = eo.read_slots(state.ents, idxs, ("vx", "vy"))
+        a2x = torch.where(step_x_first, 0.0, cur2["vx"] * pct)
+        a2y = torch.where(step_x_first, cur2["vy"] * pct, 0.0)
+        state, b2 = sub_step(gd, cfg, state, idxs, a2x, a2y, act)
+        block_x = torch.where(step_x_first, b1, b2)
+        block_y = torch.where(step_x_first, b2, b1)
+        vx_pct = vx_pct + torch.where(act & ~block_x, 1.0, 0.0)
+        vy_pct = vy_pct + torch.where(act & ~block_y, 1.0, 0.0)
+        broke = broke | (block_x & block_y)
+
+    nss_f32 = nss.to(F32)
+    cur = eo.read_slots(state.ents, idxs, ("vx", "vy"))
+    # "vx_pct / num_sub_steps" is an IEEE f32 division (bag.cpp:651-652)
+    new_vx = cur["vx"] * fm.fdiv(cfg, vx_pct, nss_f32)
+    new_vy = cur["vy"] * fm.fdiv(cfg, vy_pct, nss_f32)
+    ents = eo.write_slots_masked(state.ents, idxs, active, vx=new_vx, vy=new_vy)
+    return state.replace(ents=ents)
+
+
+def entity_euler_step_all(ents, mask):
+    """Entity::step (entity.cpp:57-82) over the masked (N, E) slots."""
+    move = mask & ~ents.smart_step
+    life_time = torch.where(mask, ents.life_time + 1, ents.life_time)
+    expired = mask & (ents.expire_time > 0) & (life_time > ents.expire_time)
+    bump = mask & (ents.type == O.EXPLOSION) & (ents.image_type < O.EXPLOSION5)
+    return ents.replace(
+        x=torch.where(move, ents.x + ents.vx, ents.x),
+        y=torch.where(move, ents.y + ents.vy, ents.y),
+        rotation=torch.where(mask, ents.rotation + ents.vrot, ents.rotation),
+        vx=torch.where(mask, ents.vx * ents.friction, ents.vx),
+        vy=torch.where(mask, ents.vy * ents.friction, ents.vy),
+        life_time=life_time,
+        will_erase=ents.will_erase | expired,
+        image_type=torch.where(bump, ents.image_type + 1, ents.image_type),
+        rx=torch.where(mask, ents.rx * ents.grow_rate, ents.rx),
+        ry=torch.where(mask, ents.ry * ents.grow_rate, ents.ry),
+        alpha=torch.where(mask, ents.alpha_decay * ents.alpha, ents.alpha),
+    )
+
+
+def step_entities(gd, cfg, state: EnvState) -> EnvState:
+    """bag.cpp:1086-1098 for games whose agent is the only smart entity:
+    slots E-1..1 Euler-step as one vector op (their updates commute), then
+    the agent (slot 0, stepped last in the reference's reverse loop) takes
+    the sub-step path against the updated positions."""
+    if not gd.agent_only_smart:
+        raise NotImplementedError(
+            "procgen_torch: smart non-agent entities are not ported yet"
+        )
+    ents = state.ents
+    slot = torch.arange(ents.capacity, device=ents.x.device)
+    others = ents.alive & (slot != eo.AGENT)[None, :]
+    state = state.replace(ents=entity_euler_step_all(ents, others))
+    state = basic_step_object(gd, cfg, state, [eo.AGENT])
+    agent_mask = (slot == eo.AGENT)[None, :] & state.ents.alive
+    return state.replace(ents=entity_euler_step_all(state.ents, agent_mask))
+
+
+def check_grid_collisions(gd, cfg, state: EnvState, idx: int, active=True) -> EnvState:
+    """bag.cpp:145-165 for smart entity slot ``idx``: dispatch the game's
+    handler over the <= 4 overlapped cells in reference order (x ascending
+    outer, y ascending inner)."""
+    ents = state.ents
+    ax, ay = ents.x[:, idx], ents.y[:, idx]
+    arx, ary = ents.rx[:, idx], ents.ry[:, idx]
+    # int() truncates toward zero
+    min_x = (ax - (arx + POS_EPS)).to(I32)
+    max_x = (ax + (arx + POS_EPS)).to(I32)
+    min_y = (ay - (ary + POS_EPS)).to(I32)
+    max_y = (ay + (ary + POS_EPS)).to(I32)
+    for cx, cy, extra_valid in (
+        (min_x, min_y, None),
+        (min_x, max_y, max_y != min_y),
+        (max_x, min_y, max_x != min_x),
+        (max_x, max_y, (max_x != min_x) & (max_y != min_y)),
+    ):
+        neg = (cx < 0) | (cy < 0)
+        t = torch.where(neg, state.out_of_bounds_object, get_obj(state, cx, cy))
+        valid = (t != O.SPACE) & active
+        if extra_valid is not None:
+            valid = valid & extra_valid
+        state = gd.handle_grid_collision(cfg, state, idx, t, cx, cy, valid)
+    return state

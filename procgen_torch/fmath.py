@@ -1,0 +1,95 @@
+"""Float-arithmetic parity helpers (counterpart of ``procgen_tpu/fmath.py``).
+
+The reference is C++ with ``float`` storage, but several expressions mix in
+``double`` literals (e.g. ``agent->vx = .9 * agent->vx``,
+basic-abstract-game.cpp:682-684), which promote to double and narrow on
+assignment.  With ``cfg.parity_mode`` those sites compute in float64 and
+narrow; otherwise they compute in float32.
+
+Eager PyTorch runs every op as its own kernel, so a multiply and a following
+add always round separately (the reference is built without FMA) and a
+division is IEEE-rounded.  ``fmuladd32``, ``fadd32`` and ``seq`` therefore
+need no pinning here; they keep the reference's names so call sites line up.
+Never route these through ``addcmul``, ``lerp`` or ``torch.compile``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+F32 = torch.float32
+F64 = torch.float64
+
+
+def f32(c) -> float:
+    """A Python constant rounded to float32 (the C++ ``float`` literal)."""
+    return float(np.float32(c))
+
+
+def _t(x, dtype=F32) -> torch.Tensor:
+    return torch.as_tensor(x).to(dtype)
+
+
+def dmul(cfg, a, c):
+    """float32( double(a) * c ) in parity mode; float32 multiply otherwise."""
+    if cfg.parity_mode:
+        return (_t(a, F64) * float(c)).to(F32)
+    return _t(a) * f32(c)
+
+
+def dadd(cfg, a, c):
+    if cfg.parity_mode:
+        return (_t(a, F64) + float(c)).to(F32)
+    return _t(a) + f32(c)
+
+
+def wide(cfg, x):
+    """Promote a C++ ``float`` operand to double for a parity-mode mixed
+    expression; identity float32 on the fast path."""
+    x = _t(x)
+    return x.to(F64) if cfg.parity_mode else x
+
+
+def narrow(x):
+    """Round a (possibly float64) expression result back to the C++ float."""
+    return _t(x, F32)
+
+
+def fdiv(cfg, a, b):
+    """IEEE-rounded float32 division (float64 then narrowed in parity mode,
+    as the reference package does)."""
+    if cfg.parity_mode:
+        return (_t(a).to(F64) / _t(b).to(F64)).to(F32)
+    return _t(a) / _t(b)
+
+
+def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
+    """IEEE float32 ``x / c`` for a constant divisor.  PyTorch's CUDA
+    division by a CPU scalar multiplies by the reciprocal instead, which is
+    up to 1 ulp off, so the divisor is made a tensor on ``x``'s device."""
+    return x / torch.full((), f32(c), dtype=F32, device=x.device)
+
+
+def seq(cfg, x):
+    """Pin an intermediate's float32 rounding in a constant chain.  Eager ops
+    are never reassociated, so this is the identity."""
+    return x
+
+
+def dmuladd(cfg, a, c, b):
+    """float32( float(b) + c * double(a) ), the shape of
+    ``float x = b + .2 * rand01()`` (e.g. fruitbot.cpp:170)."""
+    if cfg.parity_mode:
+        return (_t(b).to(F64) + float(c) * _t(a, F64)).to(F32)
+    return f32(b) + f32(c) * _t(a)
+
+
+def fmuladd32(cfg, r, scale, off):
+    """``r * scale + off`` with separate float32 roundings (no FMA)."""
+    return _t(r) * _t(scale) + _t(off)
+
+
+def fadd32(cfg, a, b):
+    """``a + b`` of two float32 products whose roundings must stay pinned."""
+    return _t(a) + _t(b)

@@ -1,0 +1,38 @@
+"""Game registry: name -> GameDef factory (reference game-registry.h).
+
+Only maze is ported so far; the other games of ``procgen_tpu.games`` follow
+in later slices."""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+_REGISTRY: Dict[str, Callable] = {}
+
+
+def register_game(name: str):
+    def deco(factory):
+        _REGISTRY[name] = factory
+        return factory
+
+    return deco
+
+
+def make_game(cfg):
+    """Instantiate the GameDef for cfg.env_name (one instance per config)."""
+    _import_all()
+    name = cfg.env_name
+    if name not in _REGISTRY:
+        raise ValueError(
+            f"unknown or unported env_name {name!r}; available: {sorted(_REGISTRY)}"
+        )
+    return _REGISTRY[name](cfg)
+
+
+def _import_all():
+    import procgen_torch.games.maze  # noqa: F401
+
+
+def available_games():
+    _import_all()
+    return sorted(_REGISTRY)

@@ -1,0 +1,165 @@
+"""procgen_torch's maze fast path against procgen_tpu's, step by step.
+
+Maze easy and hard, 4 envs, 250 steps, refill bucket 2, forced resets
+(action -1) at t = 40, 41 and 90 (the pattern of tests/test_fast_path.py).
+After the cold start and after every step the whole FastState (live state,
+queue and queue_valid) must be equal field for field, floats compared bit
+for bit, and the rendered uint8 frames must be identical.  Also: importing
+the port loads neither JAX nor procgen_tpu.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from procgen_tpu import rng as JR
+from procgen_tpu.config import DistributionMode as JMode
+from procgen_tpu.config import EnvConfig as JConfig
+from procgen_tpu.games import make_game as j_make_game
+from procgen_tpu.parallel.fast import make_fast_fns as j_make_fast_fns
+from procgen_tpu.render import fast2 as j_fast2
+from procgen_tpu.render.pack import RenderPack as JPack
+from procgen_tpu.state import init_state_template as j_template
+
+from procgen_torch import convert
+from procgen_torch.config import DistributionMode, EnvConfig
+from procgen_torch.games import make_game
+from procgen_torch.parallel.fast import make_fast_fns
+from procgen_torch.render import compositor, fast2
+from procgen_torch.render.pack import RenderPack
+from procgen_torch.state import seeded_template
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+N = 4
+SEED = 31
+
+
+def jax_fields(tree) -> dict:
+    return convert.fields_from_keypaths(jax.tree_util.tree_flatten_with_path(tree)[0])
+
+
+# One known XLA:CPU site.  update_view_params computes view_dim = 64 /
+# (64 / visibility) (procgen_tpu/render/renderer.py:56-60); in fast mode
+# XLA's algebraic simplifier folds a / (b / c) into a * c / b, which gives
+# exactly 15.0 at maze easy, while the reference's double division narrowed
+# to float (bag.cpp:834) gives 14.999999 -- the port's value.  view_dim is
+# held at 1 ulp, and x_off / y_off = unit * (c - view_dim / 2) at the
+# difference that ulp makes, unit * spacing(view_dim).
+_VIEW_FIELDS = ("view_dim", "x_off", "y_off")
+
+
+def _check_view_fields(want: dict, got: dict, prefix: str, where: str):
+    unit = got[prefix + "unit"]
+    view_dim = got[prefix + "view_dim"]
+    # the port's view_dim is the reference's float(64.0 / double(unit))
+    np.testing.assert_array_equal(
+        view_dim, (64.0 / unit.astype(np.float64)).astype(np.float32), err_msg=where
+    )
+    ulps = np.abs(
+        want[prefix + "view_dim"].view(np.int32).astype(np.int64)
+        - view_dim.view(np.int32).astype(np.int64)
+    )
+    assert ulps.max() <= 1, f"{prefix}view_dim {ulps.max()} ulp {where}"
+    bound = unit * np.spacing(view_dim)
+    for f in ("x_off", "y_off"):
+        d = np.abs(want[prefix + f] - got[prefix + f])
+        assert (d <= bound).all(), f"{prefix}{f} off by {d.max()} {where}"
+
+
+def assert_fields_equal(want: dict, got: dict, where: str):
+    assert sorted(want) == sorted(got), where
+    for prefix in {k[: -len("view_dim")] for k in want if k.endswith("view_dim")}:
+        _check_view_fields(want, got, prefix, where)
+    for k in sorted(want):
+        a, b = np.asarray(want[k]), np.asarray(got[k])
+        assert a.dtype == b.dtype and a.shape == b.shape, f"{k} {where}"
+        if k.rsplit(".", 1)[-1] in _VIEW_FIELDS:
+            continue
+        if a.dtype == np.float32:  # bitwise, signed zeros included
+            a, b = a.view(np.int32), b.view(np.int32)
+        np.testing.assert_array_equal(a, b, err_msg=f"{k} diverged {where}")
+
+
+def jax_fast_path(mode):
+    cfg = JConfig(
+        env_name="maze", num_envs=N, distribution_mode=mode, rand_seed=SEED,
+        use_generated_assets=True,
+    )
+    gd = j_make_game(cfg)
+    pack = JPack(gd, cfg)
+    tmpl = j_template(gd, cfg)
+    batched = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (N,) + x.shape), tmpl)
+    master = JR.HostMT(SEED)
+    seeds = jnp.asarray([master.randint_full() for _ in range(N)], jnp.int32)
+    batched = batched.replace(level_seed_rng=JR.mt_seed(seeds))
+    init, step = j_make_fast_fns(gd, cfg, pack, refill_bucket=2)
+    render = jax.jit(lambda s: j_fast2.render_frames2(gd, cfg, s, pack))
+    return jax.jit(init.cold)(batched), jax.jit(step), render
+
+
+@pytest.mark.parametrize("mode", ["easy", "hard"])
+def test_fast_path_matches_reference(mode):
+    j_fs, j_step, j_render = jax_fast_path(JMode[mode])
+
+    cfg = EnvConfig(
+        env_name="maze", num_envs=N, distribution_mode=DistributionMode[mode],
+        rand_seed=SEED, use_generated_assets=True,
+    )
+    gd = make_game(cfg)
+    pack = RenderPack(gd, cfg)
+    init, step = make_fast_fns(gd, cfg, pack, refill_bucket=2)
+    fs = init.cold(seeded_template(gd, cfg, N, device="cpu"))
+    assert_fields_equal(jax_fields(j_fs), convert.fast_state_to_numpy(fs), "at cold start")
+
+    rng = np.random.RandomState(7)
+    resets = 0
+    for t in range(250):
+        if t in (40, 41, 90):
+            acts = np.full((N,), -1, np.int32)
+        else:
+            acts = rng.randint(0, 15, size=N).astype(np.int32)
+        j_fs = j_step(j_fs, jnp.asarray(acts))
+        fs = step(fs, torch.as_tensor(acts))
+        resets += int(np.asarray(j_fs.state.done).sum())
+        assert_fields_equal(
+            jax_fields(j_fs), convert.fast_state_to_numpy(fs), f"at step {t}"
+        )
+        np.testing.assert_array_equal(
+            np.asarray(j_render(j_fs.state)),
+            fast2.render_frames2(gd, cfg, fs.state, pack).numpy(),
+            err_msg=f"frame diverged at step {t}",
+        )
+    assert resets >= 3 * N  # the forced resets ran the queue path
+    assert compositor.launches == 0  # CPU tensors never reach the kernel
+
+
+def test_port_imports_no_jax():
+    """procgen_torch (all modules) and chip_smoke.py load neither jax nor
+    procgen_tpu."""
+    code = r"""
+import importlib, pkgutil, sys
+import procgen_torch
+for m in pkgutil.walk_packages(procgen_torch.__path__, "procgen_torch."):
+    importlib.import_module(m.name)
+src = open("chip_smoke.py").read()
+compile(src, "chip_smoke.py", "exec")
+ns = {"__name__": "chip_smoke_import_check"}
+exec(compile(src, "chip_smoke.py", "exec"), ns)
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "procgen_tpu"))
+assert not bad, bad
+print("ok", len([n for n in sys.modules if n.startswith("procgen_torch")]))
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")

@@ -1,0 +1,100 @@
+"""The port's renderer against procgen_tpu.render.fast2 on maze states.
+
+RenderPack arrays are equal array for array.  States come from the JAX
+package (reset + random steps) and are converted with procgen_torch.convert;
+the port's entity records equal the JAX ones by value (the JAX z-sort is an
+einsum, which turns -0.0 into +0.0), and ``render_static2`` and
+``render_frames2`` give bitwise-equal uint8 frames.  Memory mode covers the
+center-agent view.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from procgen_tpu import rng as JR
+from procgen_tpu.config import DistributionMode as JMode
+from procgen_tpu.config import EnvConfig as JConfig
+from procgen_tpu.engine.game import reset_env as j_reset_env
+from procgen_tpu.engine.game import step_env as j_step_env
+from procgen_tpu.games import make_game as j_make_game
+from procgen_tpu.render import fast2 as j_fast2
+from procgen_tpu.render.pack import RenderPack as JPack
+from procgen_tpu.render.renderer import update_view_params as j_view
+from procgen_tpu.state import init_state_template as j_template
+
+from procgen_torch import convert
+from procgen_torch.config import DistributionMode, EnvConfig
+from procgen_torch.games import make_game
+from procgen_torch.render import fast2
+from procgen_torch.render.pack import RenderPack
+
+torch.set_num_threads(1)
+
+N = 6
+
+
+def _jax_states(mode, steps=15, seed=23):
+    cfg = JConfig(
+        env_name="maze", num_envs=N, distribution_mode=JMode[mode], rand_seed=seed,
+        use_generated_assets=True,
+    )
+    gd = j_make_game(cfg)
+    pack = JPack(gd, cfg)
+    tmpl = j_template(gd, cfg)
+    batched = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (N,) + x.shape), tmpl)
+    master = JR.HostMT(seed)
+    seeds = jnp.asarray([master.randint_full() for _ in range(N)], jnp.int32)
+    batched = batched.replace(level_seed_rng=JR.mt_seed(seeds))
+    states = jax.jit(jax.vmap(lambda s: j_view(gd, cfg, j_reset_env(gd, cfg, s))))(batched)
+    step = jax.jit(jax.vmap(lambda s, a: j_view(gd, cfg, j_step_env(gd, cfg, s, a))))
+    rs = np.random.RandomState(seed)
+    for _ in range(steps):
+        states = step(states, jnp.asarray(rs.randint(0, 15, size=N), jnp.int32))
+    states = states.replace(static_layer=j_fast2.render_static2(gd, cfg, states, pack))
+    return gd, cfg, pack, states
+
+
+def _port(mode, seed=23):
+    cfg = EnvConfig(
+        env_name="maze", num_envs=N, distribution_mode=DistributionMode[mode],
+        rand_seed=seed, use_generated_assets=True,
+    )
+    gd = make_game(cfg)
+    return gd, cfg, RenderPack(gd, cfg)
+
+
+@pytest.mark.parametrize("mode", ["easy", "hard", "memory"])
+def test_render_matches_reference(mode):
+    jgd, jcfg, jpack, jstates = _jax_states(mode)
+    gd, cfg, pack = _port(mode)
+
+    # host tables, array for array
+    names = sorted(k for k in vars(jpack) if not k.startswith("_"))
+    assert names == sorted(k for k in vars(pack) if not k.startswith("_"))
+    for k in names:
+        a, b = getattr(jpack, k), getattr(pack, k)
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype, k
+        np.testing.assert_array_equal(a, b, err_msg=f"RenderPack.{k}")
+
+    fields = convert.fields_from_keypaths(jax.tree_util.tree_flatten_with_path(jstates)[0])
+    states = convert.state_from_numpy(fields, "cpu")
+
+    static = fast2.render_static2(gd, cfg, states, pack)
+    np.testing.assert_array_equal(np.asarray(jstates.static_layer), static.numpy())
+
+    j_tables = j_fast2.get_tables(jgd, jcfg, jpack)
+    j_rec, j_kmax = jax.jit(
+        lambda s: j_fast2.entity_records(jgd, jcfg, s, j_tables, False)
+    )(jstates)
+    rec, kmax = fast2.entity_records(gd, cfg, states, fast2.get_tables(gd, cfg, pack, "cpu"))
+    np.testing.assert_array_equal(np.asarray(j_rec), rec.numpy())  # by value
+    assert int(j_kmax) == int(kmax)
+
+    want = jax.jit(lambda s: j_fast2.render_frames2(jgd, jcfg, s, jpack))(jstates)
+    got = fast2.render_frames2(gd, cfg, states, pack)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    assert (got.numpy() > 0).mean() > 0.9  # not a black frame
