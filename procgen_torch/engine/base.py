@@ -56,6 +56,9 @@ class GameDef:
 
     # Physics feature gates
     agent_only_smart: bool = True
+    # upper bound on simultaneously alive smart_step entities (caps the
+    # smart sub-step batch; None = max_entities)
+    max_smart_entities = None
     block_zeroes_velocity_types: tuple = ()
     uses_entity_reflect: bool = False
     uses_entity_block: bool = False
@@ -333,9 +336,11 @@ def base_game_step(gd: GameDef, cfg, state: EnvState) -> EnvState:
 
     state = ph.step_entities(gd, cfg, state)
 
-    # collision dispatch (bag.cpp:719-741), phased as in the reference package
+    # collision dispatch (bag.cpp:719-741), phased as in the reference
+    # package; the default grid handler is a no-op, so its probes are skipped
     state = gd.agent_collision_phase(cfg, state)
-    state = ph.check_grid_collisions(gd, cfg, state, eo.AGENT)
+    if type(gd).handle_grid_collision is not GameDef.handle_grid_collision:
+        state = ph.check_grid_collisions(gd, cfg, state, eo.AGENT)
 
     # erase + OOB (bag.cpp:743-745)
     ents = eo.compact(state.ents, state.main_width, state.main_height)

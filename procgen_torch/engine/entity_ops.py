@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from procgen_torch.state import F32, I32, EntityTable
+from procgen_torch.state import F32, I32, EntityTable, default_entity_fields
 
 AGENT = 0  # agent is always slot 0 (basic-abstract-game.cpp:788-792)
 
@@ -43,20 +43,96 @@ def write_slot_masked(ents: EntityTable, i: int, mask, **updates) -> EntityTable
 
 
 def read_slots(ents: EntityTable, idxs, names) -> dict:
-    """Fields of slots ``idxs`` (a list of ints) as {name: (N, M)}; direct
-    indexing keeps every bit, signed zeros included."""
+    """Fields of slots ``idxs`` as {name: (N, M)}: ``idxs`` is a list of
+    ints shared by all envs or an (N, M) int64 tensor of per-env slots.
+    Direct indexing keeps every bit, signed zeros included."""
+    if isinstance(idxs, torch.Tensor):
+        return {n: torch.gather(getattr(ents, n), 1, idxs) for n in names}
     return {n: getattr(ents, n)[:, idxs] for n in names}
 
 
 def write_slots_masked(ents: EntityTable, idxs, mask, **updates) -> EntityTable:
-    """Write (N, M) ``updates`` into slots ``idxs`` where ``mask`` (N, M)
-    holds (idxs distinct)."""
+    """Write (N, M) ``updates`` into slots ``idxs`` (as in ``read_slots``,
+    distinct per env) where ``mask`` (N, M) holds."""
     new = {}
     for name, val in updates.items():
-        arr = getattr(ents, name).clone()
-        arr[:, idxs] = torch.where(mask, val.to(arr.dtype), arr[:, idxs])
-        new[name] = arr
+        arr = getattr(ents, name)
+        if isinstance(idxs, torch.Tensor):
+            cur = torch.gather(arr, 1, idxs)
+            new[name] = arr.scatter(1, idxs, torch.where(mask, val.to(arr.dtype), cur))
+        else:
+            arr = arr.clone()
+            arr[:, idxs] = torch.where(mask, val.to(arr.dtype), arr[:, idxs])
+            new[name] = arr
     return ents.replace(**new)
+
+
+def make_entity(x, y, vx, vy, rx, ry, type_) -> dict:
+    return default_entity_fields(x, y, vx, vy, rx, ry, type_)
+
+
+def _write_where(arr: torch.Tensor, dest: torch.Tensor, val) -> torch.Tensor:
+    """``arr`` with ``val`` (a Python number or an (N,) tensor) written where
+    ``dest`` (N, E) holds."""
+    if isinstance(val, torch.Tensor):
+        val = val.to(device=arr.device, dtype=arr.dtype)
+        val = val[:, None] if val.dim() == 1 else val
+    return torch.where(dest, val, arr).to(arr.dtype)
+
+
+def append_entity(ents: EntityTable, fields: dict, active=True):
+    """push_back: write ``fields`` into slot ``count`` (the number of alive
+    slots) where ``active`` (bool (N,) or a Python bool) holds; returns
+    (ents, slot (N,)).  A full table drops the append (capacities are sized
+    so that this cannot happen in-distribution)."""
+    E = ents.capacity
+    idx = ents.alive.to(I32).sum(1)
+    ok = idx < E
+    if isinstance(active, torch.Tensor):
+        ok = ok & active
+    elif not active:
+        return ents, idx.clamp(max=E - 1)
+    slot = idx.clamp(max=E - 1)
+    dest = (torch.arange(E, device=idx.device)[None, :] == slot[:, None]) & ok[:, None]
+    new = {
+        name: _write_where(getattr(ents, name), dest, val)
+        for name, val in fields.items()
+    }
+    return ents.replace(**new), slot
+
+
+def append_entities_masked(ents: EntityTable, fields: dict, mask, descending=True):
+    """Append one entity per masked source slot (mask (N, E)), in descending
+    (or ascending) source-slot order; every field is an (N, E) candidate
+    tensor or a Python number, and ``alive`` is set.  Equivalent to a loop
+    of ``append_entity`` calls over the source slots in that order (the
+    destinations are dead slots, never a source).  Overflow appends are
+    dropped."""
+    E = ents.capacity
+    dev = mask.device
+    slot = torch.arange(E, device=dev)
+    key = torch.where(mask, (E - 1 - slot) if descending else slot, 2 * E)
+    order = torch.sort(key, dim=1, stable=True).indices  # masked sources first
+    n = mask.to(I32).sum(1, keepdim=True)
+    cnt = ents.alive.to(I32).sum(1, keepdim=True)
+    k = slot[None, :] - cnt  # destination slot j takes source number j - cnt
+    dest = (k >= 0) & (k < n)
+    src = torch.gather(order, 1, k.clamp(0, E - 1))
+    new = {"alive": ents.alive | dest}
+    for name, val in fields.items():
+        arr = getattr(ents, name)
+        if isinstance(val, torch.Tensor):
+            val = torch.gather(val.to(device=dev, dtype=arr.dtype), 1, src)
+        new[name] = torch.where(dest, val, arr).to(arr.dtype)
+    return ents.replace(**new)
+
+
+def find_entity_index(ents: EntityTable, type_) -> torch.Tensor:
+    """bag.cpp:1133-1143: the last alive slot of ``type_`` per env, -1 if
+    none (int64 (N,))."""
+    slot = torch.arange(ents.capacity, device=ents.x.device)
+    match = ents.alive & (ents.type == type_)
+    return torch.where(match, slot, -1).amax(1)
 
 
 def is_out_of_bounds(x, y, rx, ry, main_width, main_height):

@@ -13,7 +13,7 @@ axis B.
 
 Loop trip counts are fixed (W_MAX iterations, inactive tail masked) and
 draws are masked, so each env consumes exactly the reference's stream.
-The no-dead-end and door variants (mazegen.cpp:189-289) are not ported yet.
+The door variant (mazegen.cpp:211-289) is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 
 from procgen_torch import objects as O
 from procgen_torch import rng as R
+from procgen_torch.engine.rand_util import choose_nth_masked
 from procgen_torch.state import I32
 
 MAZE_OFFSET = 1  # mazegen.h
@@ -76,6 +77,12 @@ def _wall_tables(max_dim: int, device: str):
         torch.as_tensor(a, device=device)
         for a in (coords, cond_ij[:, 0], cond_ij[:, 1], odd)
     )
+
+
+@functools.lru_cache(maxsize=None)
+def _neighbor_offsets(AD: int, device: str):
+    """Flat-index steps to the left, up, down and right neighbors."""
+    return torch.as_tensor(np.array([-1, -AD, AD, 1], np.int64)).to(device)
 
 
 def _set_free_cell(grid, free_cells, in_free_set, num_free, md, x, y, do):
@@ -154,6 +161,64 @@ def generate_maze(rs: R.MTBlock, maze_dim, max_dim: int) -> MazeResult:
         labels[b, cc] = torch.where(do, s1, labels[b, cc])
         removed[b, phys] = removed[b, phys] | active
     return MazeResult(rs, grid, free_cells, num_free)
+
+
+def _neighbor_vals(grid):
+    """Values of the 4-neighbors of every cell of ``grid`` (B, AD, AD) in
+    reference push order (mazegen.cpp:48-67): left (x-1), up (y-1), down
+    (y+1), right (x+1).  Out-of-array neighbors read INVALID_OBJ (the
+    reference's border get_obj, mazegen.cpp:36-45)."""
+    pad = torch.nn.functional.pad(grid, (1, 1, 1, 1), value=O.INVALID_OBJ)
+    return (
+        pad[:, 1:-1, :-2], pad[:, :-2, 1:-1], pad[:, 2:, 1:-1], pad[:, 1:-1, 2:],
+    )
+
+
+def _dilate(vis):
+    """4-neighborhood dilation of a (B, H, W) bool mask."""
+    out = vis.clone()
+    out[:, :, 1:] |= vis[:, :, :-1]
+    out[:, :, :-1] |= vis[:, :, 1:]
+    out[:, 1:, :] |= vis[:, :-1, :]
+    out[:, :-1, :] |= vis[:, 1:, :]
+    return out
+
+
+def generate_maze_no_dead_ends(rs: R.MTBlock, maze_dim, max_dim: int):
+    """mazegen.cpp:189-210: a perfect maze, then a random wall next to every
+    dead end opened (MsPacman style).  ``maze_dim`` (B,) odd, <= max_dim.
+
+    The dead-end scan is sequential in ascending cell order (each opened
+    wall becomes SPACE and changes the neighbor counts of later cells), so
+    it loops over the cells, each step one batched op over envs with masked
+    draws.  Cells outside the maze are never dead ends and are not visited.
+    Returns (rs, grid) with grid (B, max_dim+2, max_dim+2) int32 [y, x]."""
+    res = generate_maze(rs, maze_dim, max_dim)
+    rs = res.rng
+    B = res.grid.shape[0]
+    AD = max_dim + 2
+    dev = res.grid.device
+    md = maze_dim.to(torch.int64)[:, None]
+    flat = res.grid.reshape(B, AD * AD).clone()
+    cell = torch.arange(AD * AD, device=dev)
+    cx, cy = cell % AD, torch.div(cell, AD, rounding_mode="floor")
+    interior = (cx >= 1) & (cx <= md) & (cy >= 1) & (cy <= md)  # (B, AD*AD)
+    offs = _neighbor_offsets(AD, str(dev))
+    for y in range(1, max_dim + 1):
+        for x in range(1, max_dim + 1):
+            i = y * AD + x
+            nidx = [i - 1, i - AD, i + AD, i + 1]  # l, u, d, r push order
+            nvals = torch.where(interior[:, nidx], flat[:, nidx], O.INVALID_OBJ)
+            n_space = (nvals == O.SPACE).to(I32).sum(1)
+            wall_mask = nvals == O.WALL_OBJ
+            n_wall = wall_mask.to(I32).sum(1)
+            do = interior[:, i] & (flat[:, i] == O.SPACE) & (n_space == 1) & (n_wall > 0)
+            rs, n = R.rs_randn(rs, n_wall.clamp(min=1), active=do)
+            # the n-th wall neighbor in l/u/d/r push order
+            sel = choose_nth_masked(wall_mask, n)
+            widx = (i + offs)[sel][:, None]
+            flat.scatter_(1, widx, torch.where(do[:, None], O.SPACE, torch.gather(flat, 1, widx)))
+    return rs, flat.reshape(B, AD, AD)
 
 
 def place_objects(

@@ -2,10 +2,9 @@
 ``procgen_tpu/engine/physics.py``; reference basic-abstract-game.cpp:270-372
 sub_step, :593-656 basic_step_object, :1086-1098 step_entities).
 
-Batched over a leading env axis.  This slice covers games whose agent is the
-only ``smart_step`` entity and whose movers interact with grid cells only
-(maze); the entity push/reflect/block sweeps and smart enemies arrive with
-the games that use them.
+Batched over a leading env axis.  Movers interact with grid cells only
+(maze, miner, chaser); the entity push/reflect/block sweeps arrive with the
+games that use them.
 """
 
 from __future__ import annotations
@@ -149,8 +148,9 @@ def sub_step(gd, cfg, state: EnvState, idxs, _vx, _vy, active):
 
 
 def basic_step_object(gd, cfg, state: EnvState, idxs, active=None) -> EnvState:
-    """bag.cpp:593-656 for entity slots ``idxs`` (M ints), stepped together."""
-    M = len(idxs)
+    """bag.cpp:593-656 for entity slots ``idxs`` (M ints, or per-env slots
+    (N, M)), stepped together."""
+    M = idxs.shape[1] if isinstance(idxs, torch.Tensor) else len(idxs)
     N = state.num_envs
     dev = state.done.device
     if active is None:
@@ -239,21 +239,35 @@ def entity_euler_step_all(ents, mask):
 
 
 def step_entities(gd, cfg, state: EnvState) -> EnvState:
-    """bag.cpp:1086-1098 for games whose agent is the only smart entity:
-    slots E-1..1 Euler-step as one vector op (their updates commute), then
-    the agent (slot 0, stepped last in the reference's reverse loop) takes
-    the sub-step path against the updated positions."""
-    if not gd.agent_only_smart:
-        raise NotImplementedError(
-            "procgen_torch: smart non-agent entities are not ported yet"
-        )
+    """bag.cpp:1086-1098.
+
+    Non-smart entities Euler-step as one vector op (their updates commute
+    and none of them moves during the smart phase).  Smart entities then
+    sub-step together: no ported game lets one smart entity block, reflect
+    off or push another, so the reference's reverse slot order has no
+    observable effect (audited per game in the reference package's
+    physics.step_entities).  When the agent is the only smart entity it
+    takes the sub-step path alone (slot 0, stepped last)."""
     ents = state.ents
-    slot = torch.arange(ents.capacity, device=ents.x.device)
-    others = ents.alive & (slot != eo.AGENT)[None, :]
-    state = state.replace(ents=entity_euler_step_all(ents, others))
-    state = basic_step_object(gd, cfg, state, [eo.AGENT])
-    agent_mask = (slot == eo.AGENT)[None, :] & state.ents.alive
-    return state.replace(ents=entity_euler_step_all(state.ents, agent_mask))
+    E = ents.capacity
+    slot = torch.arange(E, device=ents.x.device)
+    if gd.agent_only_smart:
+        others = ents.alive & (slot != eo.AGENT)[None, :]
+        state = state.replace(ents=entity_euler_step_all(ents, others))
+        state = basic_step_object(gd, cfg, state, [eo.AGENT])
+        agent_mask = (slot == eo.AGENT)[None, :] & state.ents.alive
+        return state.replace(ents=entity_euler_step_all(state.ents, agent_mask))
+
+    M = min(gd.max_smart_entities or E, E)
+    state = state.replace(ents=entity_euler_step_all(ents, ents.alive & ~ents.smart_step))
+    smart_alive = state.ents.alive & state.ents.smart_step
+    # smart slots in descending order first; a stable sort keeps the rest
+    # ascending, as the reference package's argsort does
+    key = torch.where(smart_alive, E - 1 - slot, 2 * E)
+    order = torch.sort(key, dim=1, stable=True).indices[:, :M]
+    act = slot[None, :M] < smart_alive.to(I32).sum(1, keepdim=True)
+    state = basic_step_object(gd, cfg, state, order, active=act)
+    return state.replace(ents=entity_euler_step_all(state.ents, smart_alive))
 
 
 def check_grid_collisions(gd, cfg, state: EnvState, idx: int, active=True) -> EnvState:

@@ -93,3 +93,13 @@ def fmuladd32(cfg, r, scale, off):
 def fadd32(cfg, a, b):
     """``a + b`` of two float32 products whose roundings must stay pinned."""
     return _t(a) + _t(b)
+
+
+def fsign(x: torch.Tensor) -> torch.Tensor:
+    """cpp-utils.h:42-44 ``sign()``: +1 / 0 / -1 as float32, where the 0
+    branch covers both IEEE zeros and returns +0.0 (``torch.sign`` keeps
+    -0.0, which would diverge wherever sign() feeds a float chain, e.g.
+    chaser's velocity re-normalization, chaser.cpp:85-86)."""
+    return torch.where(
+        x > 0, 1.0, torch.where(x == 0, 0.0, -1.0)
+    ).to(F32)

@@ -1,7 +1,7 @@
 """Game registry: name -> GameDef factory (reference game-registry.h).
 
-Only maze is ported so far; the other games of ``procgen_tpu.games`` follow
-in later slices."""
+Ported so far: maze (static grid), miner and chaser (grid-dynamic); the
+other games of ``procgen_tpu.games`` follow in later slices."""
 
 from __future__ import annotations
 
@@ -30,7 +30,9 @@ def make_game(cfg):
 
 
 def _import_all():
+    import procgen_torch.games.chaser  # noqa: F401
     import procgen_torch.games.maze  # noqa: F401
+    import procgen_torch.games.miner  # noqa: F401
 
 
 def available_games():

@@ -6,10 +6,11 @@ direct indexing picks the same values bit for bit; this port indexes.  The
 sprite compositor is a hand-written CUDA kernel
 (procgen_torch/render/compositor.py).
 
-Render classes covered in this slice: static-grid games (maze's bg + grid
-baked per level, entities composited per step) and center-agent views (maze
-memory).  Grid-dynamic games, dynamic backgrounds and HUD overlays arrive
-with the games that use them.
+Render classes covered: static-grid games (maze's bg + grid baked per
+level, entities composited per step), grid-dynamic games (miner, chaser: bg
+baked per level, grid drawn per step between two composites, colour-rect
+cells) and center-agent views (maze and miner memory).  Dynamic backgrounds
+and HUD overlays arrive with the games that use them.
 """
 
 from __future__ import annotations
@@ -67,10 +68,17 @@ class FrameTables:
         self.gbases = torch.as_tensor(np.asarray(pack.grid_class_bases, np.float32)).to(dev)
         self.gthemed = torch.as_tensor(np.asarray(pack.grid_class_themed, bool)).to(dev)
         self.K = int(pack.grid_class_types.shape[0])
-        if gd.grid_color_rect_lut(cfg) is not None:
-            raise NotImplementedError(
-                "procgen_torch: grid color rects are not ported yet"
-            )
+        # colour-rect cell classes (draw_grid_obj overrides, e.g. chaser's
+        # orbs): type, centred square's cell fraction, RGB
+        crl = gd.grid_color_rect_lut(cfg)
+        dim_lut, rgb_lut = (
+            (np.zeros((0,), np.float32), np.zeros((0, 3), np.float32))
+            if crl is None else (np.asarray(a) for a in crl)
+        )
+        ts = np.nonzero(dim_lut > 0)[0]
+        self.crect_types = ts.astype(np.int32)
+        self.crect_dims = dim_lut[ts].astype(np.float32)
+        self.crect_rgb = torch.as_tensor(rgb_lut[ts].astype(np.float32)).to(dev)
         # backgrounds at fixed 64x64 (nearest mip of the full image)
         self.bg_mip = torch.as_tensor(pack.bg_mip64).to(dev)  # (NB, 64, 64, 3) u8
         self.bg_dims = torch.as_tensor(np.asarray(pack.bg_dims, np.float32)).to(dev)
@@ -183,9 +191,11 @@ def _pixel_cells(states):
 
 def grid_pass(gd, cfg, states, tables, canvas):
     """Grid tiles (bag.cpp:941-955) blended over ``canvas``: grid -> per-game
-    class codes -> per-pixel codes -> the K class textures."""
+    class codes -> per-pixel codes -> the K class textures, then the
+    colour-rect cells."""
     K = tables.K
-    if K == 0:
+    n_crect = len(tables.crect_types)
+    if K == 0 and n_crect == 0:
         return canvas
     N = states.num_envs
     R, A = tables.R, tables.A
@@ -200,6 +210,8 @@ def grid_pass(gd, cfg, states, tables, canvas):
     code = torch.zeros_like(grid)
     for j in range(K):
         code = torch.where(grid == int(tables.gtypes[j]), j + 1, code)
+    for j in range(n_crect):
+        code = torch.where(grid == int(tables.crect_types[j]), K + 1 + j, code)
     n = torch.arange(N, device=dev)[:, None, None]
     code_pix = code[
         n,
@@ -247,6 +259,17 @@ def grid_pass(gd, cfg, states, tables, canvas):
         m = code_pix == (k + 1)
         a = div_const(spr[..., 3], 255.0) * m
         canvas = spr[..., :3] * a[..., None] + canvas * (1 - a[..., None])
+
+    # colour-rect cells: a centred square of the cell in a flat colour
+    for j in range(n_crect):
+        d = float(tables.crect_dims[j])
+        lo, hi = f32((1 - d) / 2), f32((1 + d) / 2)
+        inside = (
+            (code_pix == K + 1 + j)
+            & ((cu >= lo) & (cu < hi))[:, None, :]
+            & ((cv >= lo) & (cv < hi))[:, :, None]
+        )
+        canvas = torch.where(inside[..., None], tables.crect_rgb[j], canvas)
     return canvas
 
 
@@ -397,9 +420,10 @@ def _paint_vel_info(gd, cfg, states, out):
 
 
 def _check_render_class(gd, cfg):
-    if gd.grid_dynamic or gd.has_hud(cfg):
+    if gd.has_hud(cfg):
         raise NotImplementedError(
-            "procgen_torch: grid-dynamic and HUD render classes are not ported yet"
+            f"procgen_torch: {gd.name} draws a HUD overlay; the HUD render "
+            "class is not ported yet"
         )
 
 
@@ -410,30 +434,42 @@ def to_frames(canvas: torch.Tensor) -> torch.Tensor:
 
 def render_frames2(gd, cfg, states, pack) -> torch.Tensor:
     """Per-step batched frames -> (N, 64, 64, 3) uint8.  The sprite
-    composite runs the CUDA kernel for CUDA tensors."""
+    composite runs the CUDA kernel for CUDA tensors: once per frame, or
+    twice for grid-dynamic games, whose grid is drawn between the entities
+    under it (z < 0) and the rest (fast2.py:670-680 of the reference
+    package)."""
     _check_render_class(gd, cfg)
     tables = get_tables(gd, cfg, pack, states.done.device)
-    if gd.center_agent(cfg):
+    center = gd.center_agent(cfg)
+    if center:
         # static_layer caches the selected 64x64 bg mip for moving views
         canvas = bg_pass(gd, cfg, states, tables, states.static_layer.to(F32))
-        canvas = grid_pass(gd, cfg, states, tables, canvas)
     else:
         canvas = states.static_layer.to(F32)
     records, kmax = entity_records(gd, cfg, states, tables)
     records = _pad_records(records)
-    canvas = compositor.composite_entities(tables, records, kmax, canvas)
+    if gd.grid_dynamic:
+        canvas = compositor.composite_entities(tables, records, kmax, canvas, "neg")
+        canvas = grid_pass(gd, cfg, states, tables, canvas)
+        canvas = compositor.composite_entities(tables, records, kmax, canvas, "nonneg")
+    else:
+        if center:
+            canvas = grid_pass(gd, cfg, states, tables, canvas)
+        canvas = compositor.composite_entities(tables, records, kmax, canvas)
     canvas = _paint_vel_info(gd, cfg, states, canvas)
     return to_frames(canvas)
 
 
 def render_static2(gd, cfg, states, pack) -> torch.Tensor:
     """Per-level static layer (batched) -> (N, 64, 64, 3) uint8: static-grid
-    games bake bg + grid; center-agent views cache the selected bg mip."""
+    games bake bg + grid, grid-dynamic games the bg only; center-agent views
+    cache the selected bg mip."""
     _check_render_class(gd, cfg)
     tables = get_tables(gd, cfg, pack, states.done.device)
     bm = _select_bg(tables, states.background_index)
     if gd.center_agent(cfg):
         return to_frames(bm)
     canvas = bg_pass(gd, cfg, states, tables, bm)
-    canvas = grid_pass(gd, cfg, states, tables, canvas)
+    if not gd.grid_dynamic:
+        canvas = grid_pass(gd, cfg, states, tables, canvas)
     return to_frames(canvas)

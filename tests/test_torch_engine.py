@@ -3,6 +3,8 @@
 * fmath helpers against numpy's IEEE float32 (fast mode) and float64
   (parity mode) expressions;
 * ``write_slot_masked``;
+* the entity appends and ``find_entity_index`` against procgen_tpu's on
+  random tables, and ``fsign`` on both IEEE zeros;
 * the inline-reset ``step_env`` and the non-cold fast-path ``init`` against
   procgen_tpu's, maze hard, every field bit for bit.
 """
@@ -15,12 +17,14 @@ import torch
 from procgen_tpu import rng as JR
 from procgen_tpu.config import DistributionMode as JMode
 from procgen_tpu.config import EnvConfig as JConfig
+from procgen_tpu.engine import entity_ops as j_eo
 from procgen_tpu.engine.game import reset_env as j_reset_env
 from procgen_tpu.engine.game import step_env as j_step_env
 from procgen_tpu.games import make_game as j_make_game
 from procgen_tpu.parallel.fast import make_fast_fns as j_make_fast_fns
 from procgen_tpu.render.pack import RenderPack as JPack
 from procgen_tpu.render.renderer import update_view_params as j_view
+from procgen_tpu.state import EntityTable as JTable
 from procgen_tpu.state import init_state_template as j_template
 
 from procgen_torch import convert
@@ -32,7 +36,7 @@ from procgen_torch.games import make_game
 from procgen_torch.parallel.fast import make_fast_fns
 from procgen_torch.render.pack import RenderPack
 from procgen_torch.render.renderer import update_view_params
-from procgen_torch.state import empty_entity_table, seeded_template
+from procgen_torch.state import _ENTITY_FIELDS, EntityTable, empty_entity_table, seeded_template
 
 torch.set_num_threads(1)
 
@@ -82,6 +86,72 @@ def test_write_slot_masked():
     np.testing.assert_array_equal(out.x[:, 1].numpy(), [1.0, 0.0, 3.0])
     np.testing.assert_array_equal(out.alive[:, 1].numpy(), [True, False, True])
     assert not out.alive[:, 0].any() and not ents.alive.any()  # input untouched
+
+
+def _random_fields(rs, n, e):
+    """Numpy (n, e) arrays of every entity field (``alive`` excluded)."""
+    out = {}
+    for name, dtype in _ENTITY_FIELDS.items():
+        if name == "alive":
+            continue
+        if dtype == torch.float32:
+            out[name] = rs.uniform(-9, 9, (n, e)).astype(np.float32)
+        elif dtype == torch.int32:
+            out[name] = rs.randint(-3, 12, (n, e)).astype(np.int32)
+        else:
+            out[name] = rs.rand(n, e) < 0.5
+    return out
+
+
+def test_entity_appends_match_reference():
+    n, e = 16, 6
+    rs = np.random.RandomState(12)
+    table = _random_fields(rs, n, e)
+    table["alive"] = np.arange(e)[None, :] < rs.randint(0, e + 1, (n, 1))  # a prefix
+    table["x"][0, 0] = -0.0  # signed zeros move bit for bit
+    cand = _random_fields(rs, n, e)
+    mask = rs.rand(n, e) < 0.4
+    active = rs.rand(n) < 0.7
+    ax, ay = rs.uniform(0, 5, n).astype(np.float32), rs.uniform(0, 5, n).astype(np.float32)
+
+    j_ents = JTable(**{k: jnp.asarray(v) for k, v in table.items()})
+    t_ents = EntityTable(**{k: torch.as_tensor(v) for k, v in table.items()})
+
+    def j_all(ents, cand, mask, active, x, y):
+        one, slot = j_eo.append_entity(ents, j_eo.make_entity(x, y, 0.5, -0.5, 0.4, 0.4, 7), active)
+        down = j_eo.append_entities_masked(ents, cand, mask, descending=True)
+        up = j_eo.append_entities_masked(ents, cand, mask, descending=False)
+        return one, slot, down, up, j_eo.find_entity_index(ents, 3)
+
+    j_out = jax.jit(jax.vmap(j_all))(
+        j_ents, {k: jnp.asarray(v) for k, v in cand.items()}, jnp.asarray(mask),
+        jnp.asarray(active), jnp.asarray(ax), jnp.asarray(ay),
+    )
+    t_cand = {k: torch.as_tensor(v) for k, v in cand.items()}
+    one, slot = eo.append_entity(
+        t_ents, eo.make_entity(torch.as_tensor(ax), torch.as_tensor(ay), 0.5, -0.5, 0.4, 0.4, 7),
+        torch.as_tensor(active),
+    )
+    t_out = (
+        one, slot,
+        eo.append_entities_masked(t_ents, t_cand, torch.as_tensor(mask), descending=True),
+        eo.append_entities_masked(t_ents, t_cand, torch.as_tensor(mask), descending=False),
+        eo.find_entity_index(t_ents, 3),
+    )
+    for i, (want, got) in enumerate(zip(j_out, t_out)):
+        if isinstance(got, EntityTable):
+            for name in _ENTITY_FIELDS:
+                a, b = np.asarray(getattr(want, name)), getattr(got, name).numpy()
+                if a.dtype == np.float32:
+                    a, b = a.view(np.int32), b.view(np.int32)
+                np.testing.assert_array_equal(a, b, err_msg=f"output {i} field {name}")
+        else:
+            np.testing.assert_array_equal(np.asarray(want), got.numpy(), err_msg=f"output {i}")
+    full = t_ents.alive.all(1)
+    assert (one.alive.sum(1) == t_ents.alive.sum(1) + (torch.as_tensor(active) & ~full)).all()
+
+    z = torch.tensor([0.0, -0.0, 2.5, -3.0])
+    np.testing.assert_array_equal(_bits(fm.fsign(z).numpy()), _bits([0.0, 0.0, 1.0, -1.0]))
 
 
 def test_inline_step_and_init_match_reference():

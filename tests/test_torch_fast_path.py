@@ -142,10 +142,14 @@ def test_fast_path_matches_reference(mode):
 
 
 def test_port_imports_no_jax():
-    """procgen_torch (all modules) and chip_smoke.py load neither jax nor
-    procgen_tpu."""
+    """procgen_torch (all modules: the env surface and every game included)
+    and chip_smoke.py load neither jax nor procgen_tpu."""
     code = r"""
 import importlib, pkgutil, sys
+import procgen_torch.env, procgen_torch.games.miner, procgen_torch.games.chaser
+import procgen_torch.engine.rand_util
+from procgen_torch.games import available_games
+assert available_games() == ["chaser", "maze", "miner"], available_games()
 import procgen_torch
 for m in pkgutil.walk_packages(procgen_torch.__path__, "procgen_torch."):
     importlib.import_module(m.name)

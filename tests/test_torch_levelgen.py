@@ -1,8 +1,10 @@
-"""procgen_torch maze levelgen against procgen_tpu's, exactly.
+"""procgen_torch levelgen against procgen_tpu's, exactly.
 
 ``generate_maze`` + ``place_objects`` on 8 numpy-seeded streams at maze dims
 3..25, then whole ``reset_env`` states for maze easy and hard (converted
-with procgen_torch.convert): every field bit for bit.
+with procgen_torch.convert): every field bit for bit.  Then the rand_util
+helpers and ``generate_maze_no_dead_ends`` on batched masked draws: equal
+results and equal stream consumption.
 """
 
 import jax
@@ -98,3 +100,97 @@ def test_reset_env_matches_reference(mode):
     again = convert.state_to_numpy(convert.state_from_numpy(got, "cpu"))
     for k in got:
         np.testing.assert_array_equal(got[k], again[k], err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# rand_util and the no-dead-end maze (chaser's levelgen), batched masked draws
+# ---------------------------------------------------------------------------
+
+from procgen_tpu.engine import rand_util as j_ru  # noqa: E402
+
+from procgen_torch.engine import rand_util as ru  # noqa: E402
+
+B = 8
+
+
+def _seeds(seed):
+    return np.random.RandomState(seed).randint(0, 2**31 - 1, size=B).astype(np.int32)
+
+
+def _assert_same_stream(j_rs, t_rs):
+    """Both block cursors consumed the same draws."""
+    np.testing.assert_array_equal(np.asarray(j_rs.cursor), t_rs.cursor.numpy())
+
+
+def _blocks(seeds):
+    j_open = jax.vmap(lambda s: JR.mt_block_open(JR.mt_seed(s), 512))
+    return j_open(jnp.asarray(seeds)), R.mt_block_open(R.mt_seed(torch.as_tensor(seeds)), 512)
+
+
+def test_rand_util_matches_reference():
+    rs = np.random.RandomState(5)
+    seeds = _seeds(9)
+    n_dyn = rs.randint(0, 30, size=B).astype(np.int32)  # 0 exercises max(n, 1)
+    k_dyn = rs.randint(0, 5, size=B).astype(np.int32)
+    mask = rs.rand(B, 40) < 0.3
+    mask[0] = False  # no element at all
+    k_erase = rs.randint(0, 9, size=B).astype(np.int32)
+    k_erase[1] = 40  # more than the row holds: the take-all path
+    balls = rs.randint(0, 20, size=B).astype(np.int32)
+    nth = rs.randint(0, 15, size=B).astype(np.int32)
+
+    def j_all(blk, n, k, m, ke, x, i):
+        blk, a = j_ru.simple_choose(blk, 50, 12)
+        blk, b = j_ru.simple_choose_dyn(blk, n, k, 30, 5)
+        blk, c, cnt = j_ru.choose_n_erase(blk, m, 8, ke)
+        blk, d = j_ru.partition(blk, x, 6, 20)
+        return blk, a, b, c, cnt, d, j_ru.choose_nth_masked(m, i)
+
+    j_blk, t_blk = _blocks(seeds)
+    j_blk, *j_out = jax.jit(jax.vmap(j_all))(
+        j_blk, *(jnp.asarray(v) for v in (n_dyn, k_dyn, mask, k_erase, balls, nth))
+    )
+    t_blk, a = ru.simple_choose(t_blk, 50, 12)
+    t_blk, b = ru.simple_choose_dyn(t_blk, torch.as_tensor(n_dyn), torch.as_tensor(k_dyn), 30, 5)
+    t_blk, c, cnt = ru.choose_n_erase(t_blk, torch.as_tensor(mask), 8, torch.as_tensor(k_erase))
+    t_blk, d = ru.partition(t_blk, torch.as_tensor(balls), 6, 20)
+    e = ru.choose_nth_masked(torch.as_tensor(mask), torch.as_tensor(nth))
+
+    ja, jb, jc, jcnt, jd, je = (np.asarray(v) for v in j_out)
+    np.testing.assert_array_equal(ja, a.numpy())
+    # simple_choose_dyn leaves entries past k unspecified: compare the first k
+    kk = np.arange(5)[None, :] < k_dyn[:, None]
+    np.testing.assert_array_equal(np.where(kk, jb, 0), np.where(kk, b.numpy(), 0))
+    np.testing.assert_array_equal(jc, c.numpy())
+    np.testing.assert_array_equal(jcnt, cnt.numpy())
+    np.testing.assert_array_equal(jd, d.numpy())
+    np.testing.assert_array_equal(je, e.numpy())
+    _assert_same_stream(j_blk, t_blk)
+    assert len(set(a[0].tolist())) == 12  # distinct picks
+
+
+def test_generate_maze_no_dead_ends_matches_reference():
+    seeds = _seeds(21)
+    dims = np.asarray([5, 7, 9, 11, 13, 15, 17, 19], np.int32)
+    max_dim = 19
+    j_blk, t_blk = _blocks(seeds)
+    j_blk, j_grid = jax.jit(jax.vmap(
+        lambda b, d: j_mazegen.generate_maze_no_dead_ends(b, d, max_dim)
+    ))(j_blk, jnp.asarray(dims))
+    t_blk, grid = mazegen.generate_maze_no_dead_ends(t_blk, torch.as_tensor(dims), max_dim)
+    np.testing.assert_array_equal(np.asarray(j_grid), grid.numpy())
+    _assert_same_stream(j_blk, t_blk)
+
+    # the neighbor and dilation helpers of the door variant
+    j_nv = jax.vmap(j_mazegen._neighbor_vals)(j_grid)
+    for want, got in zip(j_nv, mazegen._neighbor_vals(grid)):
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    vis = grid == 100
+    np.testing.assert_array_equal(
+        np.asarray(jax.vmap(j_mazegen._dilate)(jnp.asarray(vis.numpy()))),
+        mazegen._dilate(vis).numpy(),
+    )
+    # no dead end is left inside any maze
+    l, u, d, r = mazegen._neighbor_vals(grid)
+    n_space = sum((v == 100).to(torch.int32) for v in (l, u, d, r))
+    assert not ((grid == 100) & (n_space == 1)).any()
