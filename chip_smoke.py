@@ -9,26 +9,29 @@ Phases (each prints one JSON line; any failure exits non-zero):
 1. build every CUDA kernel from procgen_torch/csrc (one nvcc each, started
    together) into procgen_torch/_build;
 2. each kernel against its plain PyTorch version on synthetic inputs
-   (compositor: N=512, E=40, every z_filter, binary and fractional alpha):
-   bitwise equal;
+   (compositor: N=512, E=40, every z_filter, binary and fractional alpha;
+   and E=513, coinrun's table, with kmax 60 and kmax = E): bitwise equal;
 3. for each main path (maze hard: static grid; miner hard and chaser hard:
    grid-dynamic, two compositor passes per frame with the grid drawn
-   between them):
+   between them; coinrun hard: center-agent view, entity push, 513 records;
+   leaper hard: static view, tiled and axis-rotated sprites, a pre-roll in
+   every reset):
    a. the port on the card against the port on the CPU (whose plain
       versions the CPU tests hold against the JAX package): 8 envs, 40
       steps with forced resets, every state field and frame bitwise equal;
    b. the main path: 4096 envs, refill bucket 512, generated assets, seed
-      123: cold start, then 200 rendered steps with random actions; the
-      compositor kernel's launches counted from 0 just before and read just
-      after (launches == frames, or 2 x frames for grid-dynamic games),
-      frames not black;
+      123: cold start, then 110 rendered steps with random actions (leaper
+      50: its resets pre-roll 300 physics steps); the compositor kernel's
+      launches counted from 0 just before and read just after (launches ==
+      frames, or 2 x frames for grid-dynamic games), frames not black;
    c. the final frames through the kernel and through the plain version,
       in each z pass, bitwise equal;
    d. timing (CUDA events / synchronized host clock): env-steps/s, the
       kernel's ms per launch at the path's shapes beside its plain version
       and its bound, the step's split (game step, refill, frame; miner's
-      gravity sweep), and device time by kernel from a short profiler
-      window;
+      gravity sweep; leaper's pre-roll), torch ops per refill from one
+      profiled refill at the bucket size, and device time by kernel from a
+      short profiler window;
 4. the gym3 surface: ``ProcgenTorchEnv(..., device="cuda")`` on miner, a
    few act/observe rounds with its state on the card.
 
@@ -49,10 +52,12 @@ import numpy as np
 import torch
 
 from procgen_torch import convert, cuda_build
+from procgen_torch.bench.profiling import profiled
 from procgen_torch.config import DistributionMode, EnvConfig
 from procgen_torch.engine.game import step_env_no_reset
 from procgen_torch.env import ProcgenTorchEnv
 from procgen_torch.games import make_game
+from procgen_torch.games.leaper import PREROLL_SPAN
 from procgen_torch.games.miner import SWEEP_SPAN
 from procgen_torch.parallel.fast import REFILL_SPAN, make_fast_fns
 from procgen_torch.render import compositor, fast2
@@ -70,15 +75,24 @@ FLOPS_PER_PIXEL_RECORD = 20
 FRAME_SPAN = "chip_smoke.frame"
 N_ENVS = 4096
 BUCKET = 512
-STEPS = 200
 WARMUP = 10
-# (game, mode) of each main path; maze is the static-grid class, miner and
-# chaser the grid-dynamic one
-PATHS = (("maze", "hard"), ("miner", "hard"), ("chaser", "hard"))
+# (game, mode, timed steps) of each main path: maze is the static-grid
+# class, miner and chaser the grid-dynamic one, coinrun the center-agent
+# view with entity push, leaper the static view with tiled and rotated
+# sprites.  Leaper runs fewer steps: each of its resets pre-rolls 300
+# physics steps.
+PATHS = (
+    ("maze", "hard", 100), ("miner", "hard", 100), ("chaser", "hard", 100),
+    ("coinrun", "hard", 100), ("leaper", "hard", 40),
+)
+
+
+T0 = time.perf_counter()
 
 
 def emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line per phase, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw, "t": time.perf_counter() - T0}), flush=True)
 
 
 def card_line() -> str:
@@ -107,9 +121,11 @@ def passes(gd) -> int:
     return 2 if gd.grid_dynamic else 1
 
 
-def host_ms(fn, iters: int) -> float:
-    """Mean wall ms per call, synchronized, after one warm-up."""
-    fn()
+def host_ms(fn, iters: int, warmup: bool = True) -> float:
+    """Mean wall ms per call, synchronized, after one warm-up call unless
+    the caller has just run the same work."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -129,6 +145,11 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# profiler spans read by the timing phase (procgen_torch/bench/profiling.py
+# sums host ns, count and torch ops per span, and device ns by kernel)
+SPANS = (REFILL_SPAN, FRAME_SPAN, SWEEP_SPAN, PREROLL_SPAN)
 
 
 def phase_kernels_vs_plain(dev):
@@ -151,7 +172,28 @@ def phase_kernels_vs_plain(dev):
                                    max_abs_err=float((k - p).abs().max())))
                 if not eq or drew < 0.01:
                     raise AssertionError(f"compositor kernel vs plain failed: {checks[-1]}")
-    emit("kernel_vs_plain", kernel="composite_entities", shape=[512, 40], cases=checks)
+    # coinrun's table: 512 slots and the pad record, few or all drawn (the
+    # kernel stages only the first kmax records)
+    E = 513
+    rec, atlas, canvas = compositor.synthetic_case(256, E, 20, 32, seed=7, binary_alpha=True)
+    tables = types.SimpleNamespace(var_mips=torch.as_tensor(atlas, device=dev))
+    canvas_t = torch.as_tensor(canvas, device=dev)
+    for kmax in (60, E):
+        r = rec.copy()
+        r[:, kmax:, 7] = 0.0  # non-drawable records sort last
+        rec_t = torch.as_tensor(r, device=dev)
+        kmax_t = torch.full((), kmax, dtype=torch.int32, device=dev)
+        k = compositor.composite_entities(tables, rec_t, kmax_t, canvas_t)
+        p = compositor.composite_entities_ref(tables, rec_t, kmax, canvas_t)
+        torch.cuda.synchronize()
+        checks.append(dict(records=E, binary_alpha=True, z_filter="all", kmax=kmax,
+                           bitwise_equal=bitwise_equal(k, p),
+                           drawn_share=float((k != canvas_t).float().mean()),
+                           max_abs_err=float((k - p).abs().max())))
+        if not checks[-1]["bitwise_equal"]:
+            raise AssertionError(f"compositor kernel vs plain failed: {checks[-1]}")
+    emit("kernel_vs_plain", kernel="composite_entities", shapes=[[512, 40], [256, E]],
+         cases=checks)
 
 
 def phase_card_vs_cpu(dev, game, mode):
@@ -162,8 +204,11 @@ def phase_card_vs_cpu(dev, game, mode):
     gd = make_game(cfg)
     pack = RenderPack(gd, cfg)
     runs = {}
+    # leaper refills all 8 envs at once: each of its levels pre-rolls 300
+    # physics steps (the other paths compact the refill into buckets of 4)
+    bucket = n if game == "leaper" else 4
     for d in ("cpu", dev):
-        init, step = make_fast_fns(gd, cfg, pack, refill_bucket=4)
+        init, step = make_fast_fns(gd, cfg, pack, refill_bucket=bucket)
         fs = init.cold(seeded_template(gd, cfg, n, device=d))
         rs = np.random.RandomState(9)
         frames, states = [], []
@@ -193,7 +238,8 @@ def phase_card_vs_cpu(dev, game, mode):
          rewarded_steps=rewards, fields=len(s_cpu[0]), bitwise_equal=True)
 
 
-def phase_main_path(dev, game, mode):
+def phase_main_path(dev, game, mode, timed_steps):
+    steps = WARMUP + timed_steps
     cfg = game_cfg(game, mode, N_ENVS)
     gd = make_game(cfg)
     t0 = time.perf_counter()
@@ -214,7 +260,7 @@ def phase_main_path(dev, game, mode):
     episodes = torch.zeros((), dtype=torch.int64, device=dev)
     reward_sum = torch.zeros((), dtype=torch.float64, device=dev)
     refills = torch.zeros((), dtype=torch.int64, device=dev)  # timed steps only
-    for t in range(STEPS):
+    for t in range(steps):
         if t == WARMUP:
             torch.cuda.synchronize()
             t_loop = time.perf_counter()
@@ -231,7 +277,7 @@ def phase_main_path(dev, game, mode):
         checksum += obs[:, 31, 31, :].to(torch.int64).sum()
         episodes += fs.state.done.sum()
         reward_sum += fs.state.reward.to(torch.float64).sum()
-        if t % 50 == 0 or t == STEPS - 1:
+        if t % 50 == 0 or t == steps - 1:
             black.append(float((obs > 0).float().mean()))
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t_loop
@@ -244,14 +290,14 @@ def phase_main_path(dev, game, mode):
         raise AssertionError(f"{game}: frames look black: non-zero share {black}")
     if not torch.isfinite(fs.state.ents.x).all() or not torch.isfinite(fs.state.reward).all():
         raise AssertionError(f"{game}: non-finite state")
-    sps = N_ENVS * (STEPS - WARMUP) / loop_s
-    emit("main_path", game=game, mode=mode, num_envs=N_ENVS, steps=STEPS,
+    sps = N_ENVS * timed_steps / loop_s
+    emit("main_path", game=game, mode=mode, num_envs=N_ENVS, steps=steps,
          refill_bucket=BUCKET, pack_build_s=pack_s, cold_start_s=cold_s,
-         timed_steps=STEPS - WARMUP, env_steps_per_s=sps, launches=launches,
+         timed_steps=timed_steps, env_steps_per_s=sps, launches=launches,
          launches_per_frame=passes(gd), frames=frames_rendered,
          episodes_ended=int(episodes), reward_sum=float(reward_sum),
          nonzero_pixel_share=black, checksum=int(checksum))
-    refills_per_step = int(refills) / (STEPS - WARMUP)
+    refills_per_step = int(refills) / timed_steps
     return types.SimpleNamespace(
         game=game, mode=mode, gd=gd, cfg=cfg, pack=pack, fs=fs, init=init, step=step,
         gen=gen, launches=launches, sps=sps, refills_per_step=refills_per_step,
@@ -267,6 +313,10 @@ def phase_final_frames(run, dev):
     records, kmax = fast2.entity_records(gd, cfg, states, tables)
     records = fast2._pad_records(records).contiguous()
     canvas = states.static_layer.to(torch.float32)
+    if gd.center_agent(cfg):  # the moving view draws bg (and grid) per frame
+        canvas = fast2.bg_pass(gd, cfg, states, tables, canvas)
+        if not gd.grid_dynamic:
+            canvas = fast2.grid_pass(gd, cfg, states, tables, canvas)
     before = compositor.launches
     filters = ("neg", "nonneg") if gd.grid_dynamic else ("all",)
     k, err, inputs = canvas, 0.0, []
@@ -304,11 +354,13 @@ def phase_timing(run, dev):
         return call
 
     kern_ms = cuda_ms(frame_passes(compositor.composite_entities), 50) / n_pass
-    plain_ms = cuda_ms(frame_passes(compositor.composite_entities_ref), 10) / n_pass
-    # bound of one launch: each input read once, each output written once;
+    plain_ms = cuda_ms(frame_passes(compositor.composite_entities_ref), 3) / n_pass
+    # bound of one launch: each input read once, each output written once,
+    # counting the records the kernel reads (the first kmax of each env);
     # operations on the records this run actually draws (over the passes)
     drawn = int((records[..., 7] > 0).sum())
-    nbytes = (records.numel() * 4 + tables.var_mips.numel() + 4
+    read = min(E, int(kmax))
+    nbytes = (N * read * records.shape[-1] * 4 + tables.var_mips.numel() + 4
               + run.inputs[0][0].numel() * 4 * 2)
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = drawn / n_pass * 64 * 64 * FLOPS_PER_PIXEL_RECORD / PEAK_F32_FLOPS * 1e3
@@ -317,17 +369,23 @@ def phase_timing(run, dev):
     # where a step's time goes.  Unprofiled: the whole step and the refills
     # per step (from the main path), then the game step alone, one frame and
     # one refill at the bucket size (and miner's gravity sweep), each timed
-    # alone on a synchronized host clock.  Profiled: a short window with
-    # spans for the refill (inside make_fast_fns), miner's sweep (inside its
-    # game step) and the frame (here), for device time by kernel and torch
-    # ops per span.
+    # alone on a synchronized host clock.  Profiled: one refill at the bucket
+    # size (host activity only: torch ops per refill, leaper's pre-roll
+    # span), then a short window of steps with spans for the refill (inside
+    # make_fast_fns), miner's sweep (inside its game step) and the frame
+    # (here), for device time by kernel and torch ops per span.
     fs = run.fs
     step_ms = N / run.sps * 1e3
     acts = torch.randint(0, 15, (N,), generator=run.gen, device=dev, dtype=torch.int32)
     game_step_ms = host_ms(lambda: step_env_no_reset(gd, cfg, fs.state, acts), 3)
     frame_ms = host_ms(lambda: fast2.render_frames2(gd, cfg, fs.state, run.pack), 10)
     bucket_states = seeded_template(gd, cfg, BUCKET, device=dev)
-    refill_ms = host_ms(lambda: run.init.cold(bucket_states), 3)
+    # leaper's refill pre-rolls 300 physics steps per level: one timed call,
+    # warm from the main path's refills
+    if run.game == "leaper":
+        refill_ms = host_ms(lambda: run.init.cold(bucket_states), 1, warmup=False)
+    else:
+        refill_ms = host_ms(lambda: run.init.cold(bucket_states), 3)
     extra = {}
     if run.game == "miner":
         s = fs.state
@@ -338,66 +396,54 @@ def phase_timing(run, dev):
         sweep_ms = host_ms(lambda: gd.gravity_sweep(flat, ay, ax, free), 3)
         extra = dict(sweep_ms=sweep_ms)
 
-    from torch.profiler import ProfilerActivity, profile, record_function
+    _, rp = profiled(lambda: run.init.cold(bucket_states), SPANS, cuda=False)
+    if rp["count"][REFILL_SPAN] != 1:
+        raise AssertionError(f"{run.game}: the profiled refill ran {rp['count'][REFILL_SPAN]} times")
+    if rp["count"][PREROLL_SPAN]:
+        extra.update(preroll_profiled_share_of_refill=rp["ns"][PREROLL_SPAN] / rp["ns"][REFILL_SPAN],
+                     torch_ops_per_preroll=rp["ops"][PREROLL_SPAN] / rp["count"][PREROLL_SPAN])
 
     window = 5
-    step = run.step
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    box = [fs]
+
+    def steps_and_frames():
         for _ in range(window):
-            acts = torch.randint(0, 15, (N,), generator=run.gen, device=dev, dtype=torch.int32)
-            fs = step(fs, acts)
-            with record_function(FRAME_SPAN):
-                fast2.render_frames2(gd, cfg, fs.state, run.pack)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    span_names = (REFILL_SPAN, FRAME_SPAN, SWEEP_SPAN)
-    spans = {e.key: e for e in events if e.key in span_names
-             and str(e.device_type).endswith("CPU")}
-    refills = spans[REFILL_SPAN].count if REFILL_SPAN in spans else 0
-    kernels = [e for e in events if e.key not in span_names
-               and str(e.device_type).endswith("CUDA")]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    comp_us = sum(e.self_device_time_total for e in kernels if "composite_kernel" in e.key)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    # torch ops launched directly inside each span (one or more kernels each)
-    ops = dict.fromkeys(span_names, 0)
-    ops_outside = 0
-    for e in prof.events():
-        if e.cpu_parent is not None and e.cpu_parent.name in ops:
-            ops[e.cpu_parent.name] += 1
-        elif e.cpu_parent is None and e.name not in ops and e.name.startswith("aten::"):
-            ops_outside += 1
+            a = torch.randint(0, 15, (N,), generator=run.gen, device=dev, dtype=torch.int32)
+            box[0] = run.step(box[0], a)
+            with torch.profiler.record_function(FRAME_SPAN):
+                fast2.render_frames2(gd, cfg, box[0].state, run.pack)
+
+    wall_ns, w = profiled(steps_and_frames, SPANS)
+    dev_ns = sum(w["kernels"].values())
+    comp_ns = sum(v for k, v in w["kernels"].items() if "composite_kernel" in k)
+    top = sorted(w["kernels"].items(), key=lambda kv: -kv[1])[:6]
+    spans = {k: v for k, v in w["ns"].items() if w["count"][k]}
     if SWEEP_SPAN in spans:
         # the sweep inside the profiled steps themselves, against the
         # window's wall time and against that time less the refill and
         # frame spans (the game step and the queue bookkeeping)
-        sweep_us = spans[SWEEP_SPAN].cpu_time_total
-        rest_us = wall_us - sum(spans[k].cpu_time_total for k in (REFILL_SPAN, FRAME_SPAN)
-                                if k in spans)
-        extra.update(sweep_profiled_share_of_step=sweep_us / wall_us,
-                     sweep_profiled_share_of_game_step=sweep_us / rest_us,
-                     torch_ops_per_sweep=ops[SWEEP_SPAN] / window)
+        rest_ns = wall_ns - sum(spans.get(k, 0) for k in (REFILL_SPAN, FRAME_SPAN))
+        extra.update(sweep_profiled_share_of_step=spans[SWEEP_SPAN] / wall_ns,
+                     sweep_profiled_share_of_game_step=spans[SWEEP_SPAN] / rest_ns,
+                     torch_ops_per_sweep=w["ops"][SWEEP_SPAN] / window)
     emit("timing", game=run.game, mode=run.mode, kernel_ms=kern_ms, plain_ms=plain_ms,
          bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, bytes_bound_ms=bytes_ms,
-         ops_bound_ms=ops_ms, records=[N, E], drawn_records=drawn,
+         ops_bound_ms=ops_ms, records=[N, E], kmax=read, drawn_records=drawn,
          launches_per_step=n_pass, env_steps_per_s=run.sps,
          step_ms=step_ms, game_step_ms=game_step_ms, frame_ms=frame_ms,
          refill_ms=refill_ms, refills_per_step=run.refills_per_step,
          refill_share_est=run.refills_per_step * refill_ms / step_ms,
          frame_share_est=frame_ms / step_ms,
          game_step_share_est=game_step_ms / step_ms, **extra,
-         profiled_steps=window, profiled_refills=refills,
-         profiled_wall_ms=wall_us / 1e3,
-         profiled_span_share={k: e.cpu_time_total / wall_us for k, e in spans.items()},
-         profiled_device_busy_share=dev_us / wall_us,
-         compositor_device_ms_per_step=comp_us / 1e3 / window,
-         torch_ops_per_refill=ops.get(REFILL_SPAN, 0) / max(refills, 1),
-         torch_ops_per_frame=ops.get(FRAME_SPAN, 0) / window,
-         torch_ops_per_step_outside_spans=ops_outside / window,
-         top_device_kernels=[[e.key[:60], e.self_device_time_total / 1e3] for e in top])
+         torch_ops_per_refill=rp["ops"][REFILL_SPAN],
+         profiled_steps=window, profiled_refills=w["count"][REFILL_SPAN],
+         profiled_wall_ms=wall_ns / 1e6,
+         profiled_span_share={k: v / wall_ns for k, v in spans.items()},
+         profiled_device_busy_share=dev_ns / wall_ns,
+         compositor_device_ms_per_step=comp_ns / 1e6 / window,
+         torch_ops_per_frame=w["ops"][FRAME_SPAN] / window,
+         torch_ops_per_step_outside_spans=w["ops_outside"] / window,
+         top_device_kernels=[[k[:60], v / 1e6] for k, v in top])
     return dict(ms=kern_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 launches=run.launches, launches_per_step=n_pass, max_abs_err=run.err,
                 records=[N, E])
@@ -444,9 +490,9 @@ def main() -> int:
 
     phase_kernels_vs_plain(dev)
     per_path = {}
-    for game, mode in PATHS:
+    for game, mode, timed_steps in PATHS:
         phase_card_vs_cpu(dev, game, mode)
-        run = phase_main_path(dev, game, mode)
+        run = phase_main_path(dev, game, mode, timed_steps)
         phase_final_frames(run, dev)
         per_path[f"{game}-{mode}"] = phase_timing(run, dev)
         del run

@@ -1,0 +1,74 @@
+"""Torch ops per refill, per game step and per frame of one game.
+
+    python3 -m procgen_torch.bench.op_counts leaper hard [--envs 8] [--device cpu]
+
+Counts the torch ops (aten ops that no other op encloses; each launches one
+or more kernels on a card) of one refill at ``--envs`` envs (the refill
+bucket), of one game step and of one frame, with the profiler's host
+activity (procgen_torch/bench/profiling.py).  On the card these counts set
+the host time of a step; they do not depend on the device, except the
+frame's: on the CPU the compositor runs its plain version, one op group per
+drawn record.  Prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from procgen_torch.bench.profiling import profiled
+from procgen_torch.config import DistributionMode, EnvConfig
+from procgen_torch.engine.game import step_env_no_reset
+from procgen_torch.games import make_game
+from procgen_torch.games.leaper import PREROLL_SPAN
+from procgen_torch.games.miner import SWEEP_SPAN
+from procgen_torch.parallel.fast import REFILL_SPAN, make_fast_fns
+from procgen_torch.render import fast2
+from procgen_torch.render.pack import RenderPack
+from procgen_torch.state import seeded_template
+
+STEP_SPAN, FRAME_SPAN = "op_counts.game_step", "op_counts.frame"
+SPANS = (REFILL_SPAN, PREROLL_SPAN, SWEEP_SPAN, STEP_SPAN, FRAME_SPAN)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("game")
+    ap.add_argument("mode")
+    ap.add_argument("--envs", type=int, default=8)
+    ap.add_argument("--device", default="cpu")
+    args = ap.parse_args()
+    cfg = EnvConfig(env_name=args.game, num_envs=args.envs,
+                    distribution_mode=DistributionMode[args.mode], rand_seed=123,
+                    use_generated_assets=True)
+    gd = make_game(cfg)
+    pack = RenderPack(gd, cfg)
+    init, _ = make_fast_fns(gd, cfg, pack, refill_bucket=args.envs)
+    template = seeded_template(gd, cfg, args.envs, device=args.device)
+    fs = init.cold(template)  # warm-up, and the state the step starts from
+    _, refill = profiled(lambda: init.cold(template), SPANS, cuda=False)
+    acts = torch.randint(0, 15, (args.envs,), generator=torch.Generator().manual_seed(0),
+                         dtype=torch.int32).to(args.device)
+
+    def step_and_frame():
+        with torch.profiler.record_function(STEP_SPAN):
+            step_env_no_reset(gd, cfg, fs.state, acts)
+        with torch.profiler.record_function(FRAME_SPAN):
+            fast2.render_frames2(gd, cfg, fs.state, pack)
+
+    _, step = profiled(step_and_frame, SPANS, cuda=False)
+    out = dict(game=args.game, mode=args.mode, envs=args.envs, device=args.device,
+               torch_ops_per_refill=refill["ops"][REFILL_SPAN],
+               torch_ops_per_game_step=step["ops"][STEP_SPAN],
+               torch_ops_per_frame=step["ops"][FRAME_SPAN])
+    if refill["count"][PREROLL_SPAN]:
+        out["torch_ops_per_preroll"] = refill["ops"][PREROLL_SPAN] / refill["count"][PREROLL_SPAN]
+    if step["count"][SWEEP_SPAN]:
+        out["torch_ops_per_sweep"] = step["ops"][SWEEP_SPAN]
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

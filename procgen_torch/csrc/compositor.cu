@@ -12,16 +12,17 @@
 //   records    (N, E, 11) f32, fields bbx0 bby0 bbw bbh var refl alpha ok
 //              n_th n_tv z (fast2._RF), z-sorted, non-drawable records last
 //   atlas      (NV, R, R, 4) uint8 RGBA
-//   kmax       int32 scalar on the device; records at or past it are skipped
-//              (they have ok = 0, so this only saves work)
+//   kmax       int32 scalar on the device; records at or past it are not
+//              read (they have ok = 0, so this only saves work)
 //   canvas_in  (N, 64, 64, 3) f32, canvas_out the same shape (separate)
 //
 // Design: one block per env, 256 threads, 16 pixels per thread.  Pixel p of
 // thread t is p = j * 256 + t, so a thread keeps one column x = t % 64 and
 // its column math (col, su) is done once per record.  The 48 canvas values of
 // a thread stay in registers across all records: the canvas is read once and
-// written once.  The block stages its records in shared memory and walks
-// them in order, skipping ok <= 0 and records that fail z_filter.
+// written once.  The block stages the records it can draw, the first
+// min(E, kmax), in shared memory and walks them in order, skipping ok <= 0
+// and records that fail z_filter; records past kmax are never read.
 //
 // Numerics: the result must equal the plain PyTorch version bit for bit.
 // The file is built with -fmad=false and every float op that matters is an
@@ -32,7 +33,7 @@
 //   c   = s + c * (1 - a)
 //
 // Bound: memory.  The kernel must read and write the f32 canvas, 2 x 49,152
-// bytes per env (records and atlas are a few hundred bytes more); at
+// bytes per env, and read the kmax records it draws (44 bytes each); at
 // N = 4096 that is 403 MB, about 0.12 ms at 3.35 TB/s.  Fusing the uint8
 // static-layer read and the final clip(x + 0.5) uint8 store
 // (fast2.render_frames2) into this kernel would cut that traffic 4x; that is
@@ -79,8 +80,9 @@ composite_kernel(const float* __restrict__ records,
   const int n = blockIdx.x;
   const int t = threadIdx.x;
 
+  const int kend = min(E, *kmax);
   const float* rec_g = records + (size_t)n * E * NF;
-  for (int i = t; i < E * NF; i += THREADS) rec_s[i] = rec_g[i];
+  for (int i = t; i < kend * NF; i += THREADS) rec_s[i] = rec_g[i];
 
   const float* cin = canvas_in + (size_t)n * NPIX * 3;
   float c[PPT][3];
@@ -95,7 +97,6 @@ composite_kernel(const float* __restrict__ records,
 
   const float px = (float)(t % RES) + 0.5f;
   const int y_base = t / RES;
-  const int kend = min(E, *kmax);
   for (int k = 0; k < kend; ++k) {
     const float* r = rec_s + k * NF;
     if (!(r[OK] > 0.f)) continue;

@@ -175,7 +175,9 @@ class GameDef:
         return base_game_step(self, cfg, state)
 
     def set_action_xy(self, cfg, state, move_action):
-        """bag.cpp:658-662; returns (action_vx, action_vy, action_vrot)."""
+        """bag.cpp:658-662; returns (action_vx, action_vy, action_vrot), or
+        those and the state for games whose override also writes state
+        (coinrun's has_support probe)."""
         avx = (torch.div(move_action, 3, rounding_mode="floor") - 1).to(F32)
         avy = (move_action % 3 - 1).to(F32)
         return avx, avy, torch.zeros_like(avx)
@@ -208,6 +210,23 @@ class GameDef:
             (-1,) + (1,) * (target_type.dim() - 1)
         )
         return (target_type == O.WALL_OBJ) | (target_type == oob)
+
+    def is_blocked_ents(self, cfg, state, src_type, target_type, is_horizontal):
+        return self.is_blocked(cfg, state, src_type, target_type, is_horizontal)
+
+    def is_blocked_ents_vals(self, cfg, state, src_type, tgt, is_horizontal):
+        """is_blocked_ents against blocker field values ``tgt`` (a dict of
+        type/image_theme/y/ry tensors broadcasting against ``src_type``,
+        leading env axis N); games whose blocking depends on more than the
+        type (coinrun's crates) override this."""
+        return self.is_blocked_ents(cfg, state, src_type, tgt["type"], is_horizontal)
+
+    def note_entity_blocks(self, cfg, state, idxs, blocked_mat, is_horizontal):
+        """Observe which entities blocked the movers during a sub-step (the
+        reference lets is_blocked_ents carry side effects, e.g. coinrun's
+        is_on_crate, coinrun.cpp:187-202).  ``idxs`` (N, M) mover slots,
+        ``blocked_mat`` (N, M, E') over the first E' slots.  Default: no-op."""
+        return state
 
     def will_reflect(self, cfg, state, src_type, target_type):
         return torch.zeros(
@@ -315,7 +334,11 @@ def base_game_step(gd: GameDef, cfg, state: EnvState) -> EnvState:
         action_vy=zero,
         action_vrot=zero,
     )
-    avx, avy, avrot = gd.set_action_xy(cfg, state, move)
+    res = gd.set_action_xy(cfg, state, move)
+    if len(res) == 4:
+        avx, avy, avrot, state = res
+    else:
+        avx, avy, avrot = res
     state = state.replace(action_vx=avx, action_vy=avy, action_vrot=avrot)
 
     # Agent velocity: the grid path writes action velocities directly, the

@@ -71,13 +71,22 @@ def make_entity(x, y, vx, vy, rx, ry, type_) -> dict:
     return default_entity_fields(x, y, vx, vy, rx, ry, type_)
 
 
+def _like(val: torch.Tensor, arr: torch.Tensor) -> torch.Tensor:
+    """``val`` on ``arr``'s device and dtype (no op when it already is: the
+    entity writes run hundreds of times per reset)."""
+    if val.device == arr.device and val.dtype == arr.dtype:
+        return val
+    return val.to(device=arr.device, dtype=arr.dtype)
+
+
 def _write_where(arr: torch.Tensor, dest: torch.Tensor, val) -> torch.Tensor:
     """``arr`` with ``val`` (a Python number or an (N,) tensor) written where
     ``dest`` (N, E) holds."""
     if isinstance(val, torch.Tensor):
-        val = val.to(device=arr.device, dtype=arr.dtype)
+        val = _like(val, arr)
         val = val[:, None] if val.dim() == 1 else val
-    return torch.where(dest, val, arr).to(arr.dtype)
+    out = torch.where(dest, val, arr)
+    return out if out.dtype == arr.dtype else out.to(arr.dtype)
 
 
 def append_entity(ents: EntityTable, fields: dict, active=True):
@@ -133,6 +142,27 @@ def find_entity_index(ents: EntityTable, type_) -> torch.Tensor:
     slot = torch.arange(ents.capacity, device=ents.x.device)
     match = ents.alive & (ents.type == type_)
     return torch.where(match, slot, -1).amax(1)
+
+
+def _env_col(v):
+    """A per-env (N,) tensor as an (N, 1) column against (N, E) fields; a
+    Python number stays a number."""
+    return v[:, None] if isinstance(v, torch.Tensor) and v.dim() == 1 else v
+
+
+def entity_vs_all(ents: EntityTable, x, y, rx, ry, margin=0.0):
+    """AABB overlap of one box per env (x, y, rx, ry: (N,) or numbers) with
+    every slot: has_collision (bag.cpp:1145-1150) as (N, E) bool."""
+    x, y, rx, ry, margin = (_env_col(v) for v in (x, y, rx, ry, margin))
+    tx = (rx + ents.rx) + margin
+    ty = (ry + ents.ry) + margin
+    return (torch.abs(x - ents.x) < tx) & (torch.abs(y - ents.y) < ty)
+
+
+def has_any_collision_mask(ents: EntityTable, x, y, rx, ry, margin=0.0):
+    """Alive slots that overlap the box and do not avoid collisions, (N, E)
+    bool."""
+    return entity_vs_all(ents, x, y, rx, ry, margin) & ents.alive & ~ents.avoids_collisions
 
 
 def is_out_of_bounds(x, y, rx, ry, main_width, main_height):

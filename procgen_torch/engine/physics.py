@@ -2,9 +2,10 @@
 ``procgen_tpu/engine/physics.py``; reference basic-abstract-game.cpp:270-372
 sub_step, :593-656 basic_step_object, :1086-1098 step_entities).
 
-Batched over a leading env axis.  Movers interact with grid cells only
-(maze, miner, chaser); the entity push/reflect/block sweeps arrive with the
-games that use them.
+Batched over a leading env axis.  Movers interact with grid cells and, in
+games that push (coinrun's crates), with the entity table through the
+vectorized push/block branch; the sequential reflect sweep and pure entity
+blocking arrive with the games that use them.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from procgen_torch import fmath as fm
 from procgen_torch import objects as O
 from procgen_torch.engine import entity_ops as eo
+from procgen_torch.engine.rand_util import first_true
 from procgen_torch.state import F32, I32, EnvState
 
 POS_EPS = float(np.float32(-0.001))  # bag.cpp:10
@@ -70,16 +72,99 @@ def set_obj(state: EnvState, x, y, obj) -> EnvState:
 # ---------------------------------------------------------------------------
 
 
-def sub_step(gd, cfg, state: EnvState, idxs, _vx, _vy, active):
-    """One axis-separated sub-step (bag.cpp:270-372) for entity slots
-    ``idxs`` (M ints), all at once.  ``_vx``/``_vy``/``active``: (N, M).
-    Returns (state, blocked (N, M))."""
-    if (gd.uses_entity_push or gd.uses_entity_reflect or gd.uses_entity_block
-            or gd.block_zeroes_velocity_types):
+def check_physics_features(gd):
+    """Raise for the sub-step features no ported game needs yet."""
+    if gd.uses_entity_reflect:
         raise NotImplementedError(
-            "procgen_torch: entity push/reflect/block sub-steps and blocking "
-            "side effects are not ported yet"
+            f"procgen_torch: {gd.name}: the sequential entity-reflect sweep "
+            "(dodgeball) is not ported yet"
         )
+    if gd.block_zeroes_velocity_types:
+        raise NotImplementedError(
+            f"procgen_torch: {gd.name}: velocity-zeroing wall blocks (ninja's "
+            "throwing stars) are not ported yet"
+        )
+    if gd.uses_entity_block and not gd.uses_entity_push:
+        raise NotImplementedError(
+            f"procgen_torch: {gd.name}: entity blocking without push is not "
+            "ported (no game of the reference package uses it)"
+        )
+
+
+def _corner_probes(gd, cfg, state, obj, nx, ny, is_horizontal):
+    """The 4 corner probes at +-0.98*r (bag.cpp:276): whether any is
+    blocked (N, M), and the probed cell types (N, 4, M)."""
+    rxm = obj["rx"] * SUB_STEP_MARGIN
+    rym = obj["ry"] * SUB_STEP_MARGIN
+    px = torch.stack([nx + rxm * d for d in (-1.0, -1.0, 1.0, 1.0)], 1)  # (N, 4, M)
+    py = torch.stack([ny + rym * d for d in (-1.0, 1.0, -1.0, 1.0)], 1)
+    t = get_obj_from_floats(state, px, py)
+    src_type = obj["type"][:, None, :]
+    block = gd.is_blocked(cfg, state, src_type, t, is_horizontal[:, None, :]).any(1)
+    return block, t
+
+
+def _entity_push(gd, cfg, state, idxs, obj, nx, ny, nvx, nvy, is_horizontal,
+                 active, n_live):
+    """The vectorized push/block branch (bag.cpp:240-268, 335-369 as the
+    reference package runs it): every mover (per-env slots ``idxs`` (N, M):
+    push games step their movers on the smart-entity path) against the first
+    ``n_live`` slots at once (slots past the live count of every env are
+    dead and never block).  The lowest-index blocker gives the clamp; the
+    pushed position re-probes the grid.  Returns (state, nx, ny, nvx, nvy,
+    block2)."""
+    ents = state.ents
+    E = n_live
+    bl = {f: getattr(ents, f)[:, :E] for f in ("x", "y", "rx", "ry", "type", "image_theme")}
+    ok = (ents.alive & ~ents.will_erase)[:, :E]
+    slot = torch.arange(E, device=nx.device)
+    valid = ok[:, None, :] & (slot[None, None, :] != idxs[:, :, None])  # (N, M, E)
+    coll = (
+        (torch.abs(nx[..., None] - bl["x"][:, None, :])
+         < obj["rx"][..., None] + bl["rx"][:, None, :] + POS_EPS)
+        & (torch.abs(ny[..., None] - bl["y"][:, None, :])
+           < obj["ry"][..., None] + bl["ry"][:, None, :] + POS_EPS)
+    )
+    tgt = {f: bl[f][:, None, :] for f in ("type", "image_theme", "y", "ry")}
+    blocked_mat = valid & coll & gd.is_blocked_ents_vals(
+        cfg, state, obj["type"][..., None], tgt, is_horizontal[..., None]
+    )
+    block2 = blocked_mat.any(-1)
+    m = first_true(blocked_mat)  # (N, M) lowest blocking slot, 0 if none
+    blk = {f: torch.gather(bl[f], 1, m) for f in ("x", "y", "rx", "ry")}
+    rsx = blk["rx"] + obj["rx"]
+    rsy = blk["ry"] + obj["ry"]
+    push_dx = blk["x"] + fm.fsign(nx - blk["x"]) * rsx - nx
+    push_dy = blk["y"] + fm.fsign(ny - blk["y"]) * rsy - ny
+    pxp = nx + torch.where(is_horizontal, push_dx, 0.0)
+    pyp = ny + torch.where(is_horizontal, 0.0, push_dy)
+    gblock, _ = _corner_probes(gd, cfg, state, obj, pxp, pyp, is_horizontal)
+    rx, ry = obj["rx"], obj["ry"]
+    pcl_x = torch.where(push_dx > 0, torch.floor(pxp + rx) - rx, torch.ceil(pxp - rx) + rx)
+    pcl_y = torch.where(push_dy > 0, torch.floor(pyp + ry) - ry, torch.ceil(pyp - ry) + ry)
+    gs = state.grid_step[:, None]
+    pcl_x = torch.where(gs, nx, pcl_x)
+    pcl_y = torch.where(gs, ny, pcl_y)
+    pxp = torch.where(gblock & is_horizontal, pcl_x, pxp)
+    pyp = torch.where(gblock & ~is_horizontal, pcl_y, pyp)
+    appb = block2 & active
+    nx = torch.where(appb, pxp, nx)
+    ny = torch.where(appb, pyp, ny)
+    nvx = torch.where(appb & is_horizontal, 0.0, nvx)
+    nvy = torch.where(appb & ~is_horizontal, 0.0, nvy)
+    state = gd.note_entity_blocks(
+        cfg, state, idxs, blocked_mat & active[..., None], is_horizontal
+    )
+    return state, nx, ny, nvx, nvy, block2
+
+
+def sub_step(gd, cfg, state: EnvState, idxs, _vx, _vy, active, n_live=None):
+    """One axis-separated sub-step (bag.cpp:270-372) for entity slots
+    ``idxs`` (M ints, or per-env slots (N, M)), all at once.
+    ``_vx``/``_vy``/``active``: (N, M).  ``n_live``: a bound on the live
+    slots of every env (the push branch tests blockers below it; None = the
+    whole table).  Returns (state, blocked (N, M))."""
+    check_physics_features(gd)
     obj = eo.read_slots(
         state.ents, idxs, ("x", "y", "vx", "vy", "rx", "ry", "type", "will_erase")
     )
@@ -91,17 +176,8 @@ def sub_step(gd, cfg, state: EnvState, idxs, _vx, _vy, active):
     ny = fm.fadd32(cfg, obj["y"], _vy)
     is_horizontal = _vx != 0  # (N, M)
 
-    # 4 corner probes at +-0.98*r (bag.cpp:276), stacked on axis 1
-    rxm = obj["rx"] * SUB_STEP_MARGIN
-    rym = obj["ry"] * SUB_STEP_MARGIN
-    px = torch.stack([nx + rxm * d for d in (-1.0, -1.0, 1.0, 1.0)], 1)  # (N, 4, M)
-    py = torch.stack([ny + rym * d for d in (-1.0, 1.0, -1.0, 1.0)], 1)
-    t2 = get_obj_from_floats(state, px, py)
-    src_type = obj["type"][:, None, :]
-    block = gd.is_blocked(
-        cfg, state, src_type, t2, is_horizontal[:, None, :]
-    ).any(1)
-    reflect = gd.will_reflect(cfg, state, src_type, t2).any(1)
+    block, t2 = _corner_probes(gd, cfg, state, obj, nx, ny, is_horizontal)
+    reflect = gd.will_reflect(cfg, state, obj["type"][:, None, :], t2).any(1)
 
     # Reflection off grid (bag.cpp:292-315)
     rx, ry = obj["rx"], obj["ry"]
@@ -141,15 +217,25 @@ def sub_step(gd, cfg, state: EnvState, idxs, _vx, _vy, active):
     nvx = torch.where(reflect & is_horizontal, -obj["vx"], obj["vx"])
     nvy = torch.where(reflect & ~is_horizontal, -obj["vy"], obj["vy"])
 
+    if gd.uses_entity_push:
+        state, nx, ny, nvx, nvy, block2 = _entity_push(
+            gd, cfg, state, idxs, obj, nx, ny, nvx, nvy, is_horizontal, active,
+            state.ents.capacity if n_live is None else n_live,
+        )
+        block = block | block2
+
     ents = eo.write_slots_masked(
         state.ents, idxs, active, x=nx, y=ny, vx=nvx, vy=nvy
     )
     return state.replace(ents=ents), active & block
 
 
-def basic_step_object(gd, cfg, state: EnvState, idxs, active=None) -> EnvState:
+def basic_step_object(gd, cfg, state: EnvState, idxs, active=None, n_live=None) -> EnvState:
     """bag.cpp:593-656 for entity slots ``idxs`` (M ints, or per-env slots
-    (N, M)), stepped together."""
+    (N, M)), stepped together.  The sub-step loop stops after the largest
+    sub-step count of an active mover, read once per call: in every later
+    iteration no mover acts, so nothing is written and no count changes.
+    ``n_live``: see ``sub_step``."""
     M = idxs.shape[1] if isinstance(idxs, torch.Tensor) else len(idxs)
     N = state.num_envs
     dev = state.done.device
@@ -187,7 +273,7 @@ def basic_step_object(gd, cfg, state: EnvState, idxs, active=None) -> EnvState:
     zero = torch.zeros((N, M), dtype=F32, device=dev)
     vx_pct, vy_pct = zero, zero
     broke = torch.zeros((N, M), dtype=torch.bool, device=dev)
-    for s in range(gd.max_substeps):
+    for s in range(int(torch.where(active, nss, 0).max())):
         act = active & (s < nss) & ~broke
         cur = eo.read_slots(state.ents, idxs, ("vx", "vy"))
         vx = cur["vx"] * pct
@@ -195,13 +281,13 @@ def basic_step_object(gd, cfg, state: EnvState, idxs, active=None) -> EnvState:
         # first pass moves along x if step_x_first else y; second the other
         a1x = torch.where(step_x_first, vx, 0.0)
         a1y = torch.where(step_x_first, 0.0, vy)
-        state, b1 = sub_step(gd, cfg, state, idxs, a1x, a1y, act)
+        state, b1 = sub_step(gd, cfg, state, idxs, a1x, a1y, act, n_live)
         # the reference evaluates "obj->vx * pct" at each sub_step call
         # (bag.cpp:634-638): re-read after the first axis
         cur2 = eo.read_slots(state.ents, idxs, ("vx", "vy"))
         a2x = torch.where(step_x_first, 0.0, cur2["vx"] * pct)
         a2y = torch.where(step_x_first, cur2["vy"] * pct, 0.0)
-        state, b2 = sub_step(gd, cfg, state, idxs, a2x, a2y, act)
+        state, b2 = sub_step(gd, cfg, state, idxs, a2x, a2y, act, n_live)
         block_x = torch.where(step_x_first, b1, b2)
         block_y = torch.where(step_x_first, b2, b1)
         vx_pct = vx_pct + torch.where(act & ~block_x, 1.0, 0.0)
@@ -261,12 +347,23 @@ def step_entities(gd, cfg, state: EnvState) -> EnvState:
     M = min(gd.max_smart_entities or E, E)
     state = state.replace(ents=entity_euler_step_all(ents, ents.alive & ~ents.smart_step))
     smart_alive = state.ents.alive & state.ents.smart_step
+    n_smart = smart_alive.to(I32).sum(1, keepdim=True)
+    n_live = None
+    if gd.uses_entity_push:
+        # the push branch compares every mover with every slot: bound the
+        # slots by the batch's largest live count and the movers by its
+        # largest smart count, read once per step.  Exact: live slots are a
+        # prefix of the table (compact keeps survivors in front, appends go
+        # to slot count), dead slots never block, movers past n_smart never
+        # act.
+        n_live, n_movers = torch.stack([state.ents.alive.sum(1).max(), n_smart.max()]).tolist()
+        M = min(M, max(n_movers, 1))
     # smart slots in descending order first; a stable sort keeps the rest
     # ascending, as the reference package's argsort does
     key = torch.where(smart_alive, E - 1 - slot, 2 * E)
     order = torch.sort(key, dim=1, stable=True).indices[:, :M]
-    act = slot[None, :M] < smart_alive.to(I32).sum(1, keepdim=True)
-    state = basic_step_object(gd, cfg, state, order, active=act)
+    act = slot[None, :M] < n_smart
+    state = basic_step_object(gd, cfg, state, order, active=act, n_live=n_live)
     return state.replace(ents=entity_euler_step_all(state.ents, smart_alive))
 
 

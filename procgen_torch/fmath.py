@@ -82,7 +82,7 @@ def dmuladd(cfg, a, c, b):
     ``float x = b + .2 * rand01()`` (e.g. fruitbot.cpp:170)."""
     if cfg.parity_mode:
         return (_t(b).to(F64) + float(c) * _t(a, F64)).to(F32)
-    return f32(b) + f32(c) * _t(a)
+    return (b if isinstance(b, torch.Tensor) else f32(b)) + f32(c) * _t(a)
 
 
 def fmuladd32(cfg, r, scale, off):

@@ -1,7 +1,9 @@
 """Game registry: name -> GameDef factory (reference game-registry.h).
 
-Ported so far: maze (static grid), miner and chaser (grid-dynamic); the
-other games of ``procgen_tpu.games`` follow in later slices."""
+Ported so far: maze (static grid), miner and chaser (grid-dynamic), coinrun
+(center-agent platformer with entity push) and leaper (static view, tiled
+and axis-rotated sprites); the other games of ``procgen_tpu.games`` follow
+in later slices."""
 
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ def make_game(cfg):
 
 def _import_all():
     import procgen_torch.games.chaser  # noqa: F401
+    import procgen_torch.games.coinrun  # noqa: F401
+    import procgen_torch.games.leaper  # noqa: F401
     import procgen_torch.games.maze  # noqa: F401
     import procgen_torch.games.miner  # noqa: F401
 

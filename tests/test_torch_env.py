@@ -4,8 +4,9 @@
 Maze and miner, 4 envs, 32 act/observe rounds with random actions and a
 forced reset (action -1): rewards, firsts, frames and infos equal, and the
 whole state equal field for field (the inline auto-reset and the per-level
-static layer included).  Then the master-seed dealing of the joint env and
-the surface's refusals.
+static layer included).  Coinrun and leaper run through the surface on the
+port alone.  Then the master-seed dealing of the joint env and the
+surface's refusals.
 """
 
 import numpy as np
@@ -54,6 +55,28 @@ def test_env_matches_reference(game, mode):
         ref.act(acts)
         env.act(acts)
     assert firsts >= 1
+
+
+@pytest.mark.parametrize("game", ["coinrun", "leaper"])
+def test_env_runs_new_games(game):
+    """The gym3 surface on coinrun and leaper (their steps and resets are
+    held against procgen_tpu in tests/test_torch_coinrun.py and
+    test_torch_leaper.py): act/observe rounds with a forced reset give a
+    new level and a first flag, frames on the view of the live state."""
+    env = ProcgenTorchEnv(2, game, rand_seed=9, use_generated_assets=True, device="cpu")
+    seeds = env.state.current_level_seed.clone()
+    rng = np.random.RandomState(4)
+    for t in range(4):
+        acts = rng.randint(0, 15, size=2).astype(np.int32)
+        if t == 2:
+            acts[0] = -1  # forced reset
+        env.act(acts)
+        rew, ob, first = env.observe()
+        assert ob["rgb"].shape == (2, 64, 64, 3) and ob["rgb"].dtype == np.uint8
+        assert (ob["rgb"] > 0).mean() > 0.9 and np.isfinite(rew).all()
+        np.testing.assert_array_equal(ob["rgb"], env.render_fn(env.state).numpy())
+        if t == 2:
+            assert first[0] and env.state.current_level_seed[0] != seeds[0]
 
 
 def test_joint_env_master_seed_dealing():

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from procgen_tpu import fmath as j_fmath
 from procgen_tpu import rng as JR
 from procgen_tpu.config import DistributionMode as JMode
 from procgen_tpu.config import EnvConfig as JConfig
@@ -46,6 +47,29 @@ def jax_fields(tree) -> dict:
     return convert.fields_from_keypaths(jax.tree_util.tree_flatten_with_path(tree)[0])
 
 
+def pin_jax_roundings(monkeypatch):
+    """Route procgen_tpu's fadd32 and fmuladd32 through their parity-mode
+    form for one test.  On the JAX fast path both are plain mul/add, and
+    XLA:CPU contracts the products into FMAs (1 ulp off the reference, which
+    rounds each product: coinrun's air control, coinrun.cpp:158; the
+    sub-step's x + vx * pct when pct is inexact; the random agent spawn,
+    bag.cpp:781-782).  Parity mode routes them through a host callback that
+    rounds as the reference does, which is what the port computes."""
+
+    def fadd32(cfg, a, b):
+        a, b = jnp.broadcast_arrays(jnp.asarray(a, jnp.float32), jnp.asarray(b, jnp.float32))
+        return j_fmath._callback(j_fmath._np_fadd, a, a, b)
+
+    def fmuladd32(cfg, r, scale, off):
+        r, scale, off = jnp.broadcast_arrays(
+            *(jnp.asarray(v, jnp.float32) for v in (r, scale, off))
+        )
+        return j_fmath._callback(j_fmath._np_fmuladd, r, r, scale, off)
+
+    monkeypatch.setattr(j_fmath, "fadd32", fadd32)
+    monkeypatch.setattr(j_fmath, "fmuladd32", fmuladd32)
+
+
 # One known XLA:CPU site.  update_view_params computes view_dim = 64 /
 # (64 / visibility) (procgen_tpu/render/renderer.py:56-60); in fast mode
 # XLA's algebraic simplifier folds a / (b / c) into a * c / b, which gives
@@ -56,7 +80,7 @@ def jax_fields(tree) -> dict:
 _VIEW_FIELDS = ("view_dim", "x_off", "y_off")
 
 
-def _check_view_fields(want: dict, got: dict, prefix: str, where: str):
+def _check_view_fields(want: dict, got: dict, prefix: str, where: str, centered=False):
     unit = got[prefix + "unit"]
     view_dim = got[prefix + "view_dim"]
     # the port's view_dim is the reference's float(64.0 / double(unit))
@@ -68,16 +92,31 @@ def _check_view_fields(want: dict, got: dict, prefix: str, where: str):
         - view_dim.view(np.int32).astype(np.int64)
     )
     assert ulps.max() <= 1, f"{prefix}view_dim {ulps.max()} ulp {where}"
+    if centered:
+        # a center-agent view centres on the agent, so c - view_dim / 2
+        # rounds at the agent's magnitude: each package's offsets must be
+        # exactly unit * (c - view_dim / 2) of its own view_dim, c and unit
+        # (the centres and units are compared bit for bit)
+        for f, c in (("x_off", "center_x"), ("y_off", "center_y")):
+            for d in (want, got):
+                half = d[prefix + "view_dim"] / np.float32(2)
+                np.testing.assert_array_equal(
+                    d[prefix + f], d[prefix + "unit"] * (d[prefix + c] - half),
+                    err_msg=f"{prefix}{f} {where}",
+                )
+        return
     bound = unit * np.spacing(view_dim)
     for f in ("x_off", "y_off"):
         d = np.abs(want[prefix + f] - got[prefix + f])
         assert (d <= bound).all(), f"{prefix}{f} off by {d.max()} {where}"
 
 
-def assert_fields_equal(want: dict, got: dict, where: str):
+def assert_fields_equal(want: dict, got: dict, where: str, centered=False):
+    """Every field equal, floats bit for bit, except the view fields, held
+    to the view_dim rule above (``centered`` for center-agent views)."""
     assert sorted(want) == sorted(got), where
     for prefix in {k[: -len("view_dim")] for k in want if k.endswith("view_dim")}:
-        _check_view_fields(want, got, prefix, where)
+        _check_view_fields(want, got, prefix, where, centered)
     for k in sorted(want):
         a, b = np.asarray(want[k]), np.asarray(got[k])
         assert a.dtype == b.dtype and a.shape == b.shape, f"{k} {where}"
@@ -147,9 +186,10 @@ def test_port_imports_no_jax():
     code = r"""
 import importlib, pkgutil, sys
 import procgen_torch.env, procgen_torch.games.miner, procgen_torch.games.chaser
+import procgen_torch.games.coinrun, procgen_torch.games.leaper
 import procgen_torch.engine.rand_util
 from procgen_torch.games import available_games
-assert available_games() == ["chaser", "maze", "miner"], available_games()
+assert available_games() == ["chaser", "coinrun", "leaper", "maze", "miner"], available_games()
 import procgen_torch
 for m in pkgutil.walk_packages(procgen_torch.__path__, "procgen_torch."):
     importlib.import_module(m.name)
