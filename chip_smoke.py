@@ -10,7 +10,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    together) into procgen_torch/_build;
 2. each kernel against its plain PyTorch version on synthetic inputs
    (compositor: N=512, E=40, every z_filter, binary and fractional alpha;
-   and E=513, coinrun's table, with kmax 60 and kmax = E): bitwise equal;
+   E=513, coinrun's table, with kmax 60 and kmax = E; and edge records:
+   box edges on pixel centres and one ulp off, sizes of 1e-6, boxes at
+   +-1e6 and off screen, tiled boxes, overlapping records of different z,
+   a canvas half exactly 0, kmax 0, 1 and E, every z_filter): bitwise equal;
 3. for each main path (maze hard: static grid; miner hard and chaser hard:
    grid-dynamic, two compositor passes per frame with the grid drawn
    between them; coinrun hard: center-agent view, entity push, 513 records;
@@ -25,7 +28,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
       launches counted from 0 just before and read just after (launches ==
       frames, or 2 x frames for grid-dynamic games), frames not black;
    c. the final frames through the kernel and through the plain version,
-      in each z pass, bitwise equal;
+      in each z pass, bitwise equal, each pass's input canvas >= +0 (the
+      kernel skips pixels outside a record's box, which is exact only
+      without -0.0);
    d. timing (CUDA events / synchronized host clock): env-steps/s, the
       kernel's ms per launch at the path's shapes beside its plain version
       and its bound, the step's split (game step, refill, frame; miner's
@@ -68,8 +73,8 @@ from procgen_torch.state import seeded_template
 # outside the tensor cores, at the 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-# f32 ops per (pixel, drawn record) in the compositor: col/row sub+div,
-# tiling, texel scale, premultiply, 3 channels of mul+add+sub
+# f32 ops per pixel inside a drawn record's box in the compositor: col/row
+# sub+div, tiling, texel scale, premultiply, 3 channels of mul+add+sub
 FLOPS_PER_PIXEL_RECORD = 20
 
 FRAME_SPAN = "chip_smoke.frame"
@@ -192,7 +197,26 @@ def phase_kernels_vs_plain(dev):
                            max_abs_err=float((k - p).abs().max())))
         if not checks[-1]["bitwise_equal"]:
             raise AssertionError(f"compositor kernel vs plain failed: {checks[-1]}")
-    emit("kernel_vs_plain", kernel="composite_entities", shapes=[[512, 40], [256, E]],
+    # edge records (compositor.edge_case): the clipping to each record's
+    # pixel span must change no bit
+    E = 24
+    rec, atlas, canvas = compositor.edge_case(512, E, seed=9)
+    tables = types.SimpleNamespace(var_mips=torch.as_tensor(atlas, device=dev))
+    rec_t = torch.as_tensor(rec, device=dev)
+    canvas_t = torch.as_tensor(canvas, device=dev)
+    for z_filter in ("all", "neg", "nonneg"):
+        for kmax in (0, 1, E):
+            kmax_t = torch.full((), kmax, dtype=torch.int32, device=dev)
+            k = compositor.composite_entities(tables, rec_t, kmax_t, canvas_t, z_filter)
+            p = compositor.composite_entities_ref(tables, rec_t, kmax, canvas_t, z_filter)
+            torch.cuda.synchronize()
+            checks.append(dict(records=E, edge=True, z_filter=z_filter, kmax=kmax,
+                               bitwise_equal=bitwise_equal(k, p),
+                               drawn_share=float((k != canvas_t).float().mean()),
+                               max_abs_err=float((k - p).abs().max())))
+            if not checks[-1]["bitwise_equal"] or (kmax == 0 and not bitwise_equal(k, canvas_t)):
+                raise AssertionError(f"compositor kernel vs plain failed: {checks[-1]}")
+    emit("kernel_vs_plain", kernel="composite_entities", shapes=[[512, 40], [256, 513], [512, E]],
          cases=checks)
 
 
@@ -321,6 +345,8 @@ def phase_final_frames(run, dev):
     filters = ("neg", "nonneg") if gd.grid_dynamic else ("all",)
     k, err, inputs = canvas, 0.0, []
     for z_filter in filters:
+        if torch.signbit(k).any() or not torch.isfinite(k).all():
+            raise AssertionError(f"{run.game}: pass {z_filter}'s canvas holds -0.0, < 0 or non-finite")
         inputs.append((k, z_filter))
         out_k = compositor.composite_entities(tables, records, kmax, k, z_filter)
         out_p = compositor.composite_entities_ref(tables, records, kmax, k, z_filter)
@@ -342,6 +368,24 @@ def phase_final_frames(run, dev):
     run.tables, run.records, run.kmax, run.inputs, run.err = tables, records, kmax, inputs, err
 
 
+def drawn_pixels(records, z_filter) -> int:
+    """Pixels inside the boxes of the records a pass draws, clipped to the
+    screen: the exact box test of the plain version, per axis."""
+    ok = records[..., 7] > 0
+    if z_filter == "neg":
+        ok &= records[..., 10] < 0
+    elif z_filter == "nonneg":
+        ok &= records[..., 10] >= 0
+    d = records[ok]
+    px = torch.arange(64, dtype=torch.float32, device=d.device) + 0.5
+
+    def inside(lo, size):
+        t = (px[None, :] - lo[:, None]) / size[:, None]
+        return ((t >= 0) & (t < 1)).sum(1)
+
+    return int((inside(d[:, 0], d[:, 2]) * inside(d[:, 1], d[:, 3])).sum())
+
+
 def phase_timing(run, dev):
     gd, cfg, tables, records, kmax = run.gd, run.cfg, run.tables, run.records, run.kmax
     N, E, _ = records.shape
@@ -357,13 +401,15 @@ def phase_timing(run, dev):
     plain_ms = cuda_ms(frame_passes(compositor.composite_entities_ref), 3) / n_pass
     # bound of one launch: each input read once, each output written once,
     # counting the records the kernel reads (the first kmax of each env);
-    # operations on the records this run actually draws (over the passes)
+    # operations on the pixels inside the boxes this run actually draws,
+    # clipped to the screen (over the passes)
     drawn = int((records[..., 7] > 0).sum())
     read = min(E, int(kmax))
     nbytes = (N * read * records.shape[-1] * 4 + tables.var_mips.numel() + 4
               + run.inputs[0][0].numel() * 4 * 2)
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = drawn / n_pass * 64 * 64 * FLOPS_PER_PIXEL_RECORD / PEAK_F32_FLOPS * 1e3
+    pixels = sum(drawn_pixels(records[:, :read], z) for _, z in run.inputs) / n_pass
+    ops_ms = pixels * FLOPS_PER_PIXEL_RECORD / PEAK_F32_FLOPS * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
 
     # where a step's time goes.  Unprofiled: the whole step and the refills
@@ -429,6 +475,7 @@ def phase_timing(run, dev):
     emit("timing", game=run.game, mode=run.mode, kernel_ms=kern_ms, plain_ms=plain_ms,
          bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, bytes_bound_ms=bytes_ms,
          ops_bound_ms=ops_ms, records=[N, E], kmax=read, drawn_records=drawn,
+         drawn_pixels_per_launch=pixels,
          launches_per_step=n_pass, env_steps_per_s=run.sps,
          step_ms=step_ms, game_step_ms=game_step_ms, frame_ms=frame_ms,
          refill_ms=refill_ms, refills_per_step=run.refills_per_step,
@@ -486,7 +533,7 @@ def main() -> int:
     built = cuda_build.build_all()
     emit("build", kernels={n: {"seconds": r["seconds"], "ptxas": [
         ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]}
-        for n, r in built.items()})
+        for n, r in built.items()}, compositor_blocks_per_sm=compositor.blocks_per_sm())
 
     phase_kernels_vs_plain(dev)
     per_path = {}

@@ -9,7 +9,8 @@ its design notes are in ``procgen_torch/csrc/compositor.cu``.
 For CUDA tensors the wrapper launches the kernel (or raises); for CPU
 tensors it runs ``composite_entities_ref``, the plain version, which
 performs the same float operations in the same order and so gives the same
-bits.  ``launches`` counts kernel launches.
+bits.  ``launches`` counts kernel launches.  ``pixel_span`` mirrors the
+kernel's clipping of each record to its box.
 """
 
 from __future__ import annotations
@@ -89,22 +90,97 @@ def composite_entities_ref(tables, records, kmax, canvas, z_filter="all"):
     return out
 
 
+def pixel_span(lo, size):
+    """Conservative pixel span ``[first, end)`` of one box axis (edge
+    ``lo``, size ``size``, float32 arrays): every pixel x whose centre the
+    exact test ``(x + 0.5 - lo) / size in [0, 1)`` accepts has
+    ``first <= x < end``.  The kernel draws a record only over its span;
+    this mirrors ``pixel_span`` in ``procgen_torch/csrc/compositor.cu``
+    operation for operation (float32, clamped to [0, 64] before the
+    conversion; a size outside (0, 1e30) takes the whole axis, since past
+    2**126 the quotient can underflow to -0.0, which the test accepts).
+    Returns two int32 arrays."""
+    lo = np.asarray(lo, np.float32)
+    size = np.asarray(size, np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        first = np.floor(lo - np.float32(1.5))
+        end = np.ceil((lo + size) + np.float32(0.5))
+        whole = ~((size > 0) & (size < np.float32(1e30)))
+    first = np.where(whole, 0, np.fmin(np.fmax(first, np.float32(0)), np.float32(RES)))
+    end = np.where(whole, RES, np.fmin(np.fmax(end, np.float32(0)), np.float32(RES)))
+    return first.astype(np.int32), end.astype(np.int32)
+
+
+def edge_axes(rs, count: int):
+    """``count`` adversarial (lo, size) pairs of one box axis, float32: edges
+    at pixel centres k + 0.5 and one ulp either side, size 1e-6 (the main
+    path's clamp), boxes at +-1e6 and fully off screen, and a share of
+    sizes that are not > 0 or not finite."""
+    f32 = np.float32
+    centres = np.arange(-3, 68, dtype=np.float32) + f32(0.5)
+    edges = np.concatenate([centres, np.nextafter(centres, f32(np.inf)),
+                            np.nextafter(centres, f32(-np.inf))])
+    lo = rs.choice(edges, count).astype(np.float32)
+    far = edges[rs.randint(0, len(edges), count)]
+    size = np.where(far > lo, far - lo, rs.uniform(0.5, 30, count)).astype(np.float32)
+    kind = rs.randint(0, 10, count)
+    size = np.where(kind == 1, f32(1e-6), size)
+    big = np.array([[-1e6, 1e6 + 32], [-1e6, 2e6], [1e6, 10], [-1e6, 10], [-1e6, 1e6],
+                    [-50, 10], [70, 10], [64.5, 1], [-1, 0.5], [63.5, 1e-6]], np.float32)
+    pick = big[rs.randint(0, len(big), count)]
+    lo = np.where(kind == 2, pick[:, 0], lo)
+    size = np.where(kind == 2, pick[:, 1], size)
+    odd = np.array([0.0, -0.0, -3.0, 3e38, np.inf, np.nan], np.float32)
+    size = np.where(kind == 3, odd[rs.randint(0, len(odd), count)], size)
+    return lo.astype(np.float32), size.astype(np.float32)
+
+
+def edge_case(n: int, e: int, nv: int = 8, r: int = 16, seed: int = 0):
+    """Seeded adversarial compositor inputs: boxes from ``edge_axes``, tiled
+    boxes, overlapping records with different z (each env's second half
+    repeats its first half's boxes shifted by under a pixel), variants that
+    name no atlas entry, and a canvas of which half the values are exactly
+    0.  Returns (records, atlas, canvas) as ``synthetic_case`` does."""
+    rec, atlas, canvas = synthetic_case(n, e, nv, r, seed=seed, binary_alpha=True)
+    rs = np.random.RandomState(seed + 1)
+    for lo_f, size_f in (("bbx0", "bbw"), ("bby0", "bbh")):
+        lo, size = edge_axes(rs, n * e)
+        rec[..., _F[lo_f]] = lo.reshape(n, e)
+        rec[..., _F[size_f]] = size.reshape(n, e)
+    h = e // 2
+    for f in ("bbx0", "bby0", "bbw", "bbh"):
+        rec[:, h:2 * h, _F[f]] = rec[:, :h, _F[f]]
+    rec[:, h:2 * h, _F["bbx0"]] += rs.uniform(-0.9, 0.9, size=(n, h)).astype(np.float32)
+    z = rec[:, :h, _F["z"]]
+    rec[:, h:2 * h, _F["z"]] = np.where(z == 1, -1, z + 1)
+    rec[..., _F["n_th"]] = rs.choice([1, 2, 3, 7], size=(n, e))
+    rec[..., _F["n_tv"]] = rs.choice([1, 2, 3, 7], size=(n, e))
+    bad = rs.rand(n, e) < 0.1
+    rec[..., _F["var"]] = np.where(bad, rs.choice([-1.0, nv, 2.5], size=(n, e)), rec[..., _F["var"]])
+    canvas[rs.rand(*canvas.shape) < 0.5] = 0.0
+    return rec, atlas, canvas
+
+
 def synthetic_case(n: int, e: int, nv: int = 20, r: int = 32, seed: int = 0,
-                   binary_alpha: bool = False):
+                   binary_alpha: bool = False, cell: float | None = None):
     """Seeded numpy inputs that exercise every compositor path: boxes partly
     off screen, tiling n_th / n_tv in {1, 2, 3}, reflection, mixed ok, z in
     {-1, 0, 1}; texel alpha in {0, 255} and entity alpha 1 when
-    ``binary_alpha``, else fractional.  Returns (records (n, e, 11) f32,
-    atlas (nv, r, r, 4) uint8, canvas (n, 64, 64, 3) f32)."""
+    ``binary_alpha``, else fractional.  Box sides are uniform in 1-40 px,
+    or with ``cell`` (a grid cell in px, as 64 / 13 for coinrun's view)
+    0.5-1.5 cells, as the main path's sprites are.  Returns (records
+    (n, e, 11) f32, atlas (nv, r, r, 4) uint8, canvas (n, 64, 64, 3) f32)."""
     rs = np.random.RandomState(seed)
     atlas = rs.randint(0, 256, size=(nv, r, r, 4)).astype(np.uint8)
     if binary_alpha:
         atlas[..., 3] = 255 * rs.randint(0, 2, size=(nv, r, r))
     rec = np.zeros((n, e, NF), np.float32)
-    rec[..., _F["bbx0"]] = rs.uniform(-24, 60, size=(n, e))
-    rec[..., _F["bby0"]] = rs.uniform(-24, 60, size=(n, e))
-    rec[..., _F["bbw"]] = rs.uniform(1, 40, size=(n, e))
-    rec[..., _F["bbh"]] = rs.uniform(1, 40, size=(n, e))
+    edge = (-24, 60) if cell is None else (-cell, RES)
+    side = (1, 40) if cell is None else (0.5 * cell, 1.5 * cell)
+    rec[..., _F["bbx0"]] = rs.uniform(*edge, size=(n, e))
+    rec[..., _F["bby0"]] = rs.uniform(*edge, size=(n, e))
+    rec[..., _F["bbw"]] = rs.uniform(*side, size=(n, e))
+    rec[..., _F["bbh"]] = rs.uniform(*side, size=(n, e))
     rec[..., _F["var"]] = rs.randint(0, nv, size=(n, e))
     rec[..., _F["refl"]] = rs.randint(0, 2, size=(n, e))
     rec[..., _F["alpha"]] = 1.0 if binary_alpha else rs.uniform(0, 1, size=(n, e))
@@ -123,6 +199,14 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def blocks_per_sm() -> int:
+    """Resident kernel blocks per SM on the current card (needs CUDA)."""
+    n = cuda_build.load("compositor").composite_entities_blocks_per_sm()
+    if n < 0:
+        raise RuntimeError(f"composite_entities: occupancy query failed (error {-n})")
+    return n
 
 
 def composite_entities(tables, records, kmax, canvas, z_filter="all"):
@@ -155,6 +239,8 @@ def composite_entities(tables, records, kmax, canvas, z_filter="all"):
                 f"composite_entities: {name} must be a contiguous {dtype} "
                 f"tensor on {canvas.device}"
             )
+    if canvas.data_ptr() % 16:
+        raise ValueError("composite_entities: the kernel's bulk copy needs a 16-byte aligned canvas")
     if kmax is None:
         kmax = E
     kmax_t = torch.as_tensor(kmax, device=canvas.device).to(torch.int32).reshape(1)

@@ -19,6 +19,13 @@ inputs of chip_smoke.py's kernel check, smaller), every z_filter:
   1 (measured: equal);
 * a CPU tensor runs the plain version and launches no kernel.
 
+The kernel draws each record only over a conservative pixel span of its box
+(``compositor.pixel_span`` mirrors the kernel's formula), and skips the
+pixels outside, which is exact only while the canvas holds no -0.0.  Two
+tests hold those premises here: every pixel that the plain version draws
+lies inside the span, on seeded and adversarial boxes; and the canvases
+that the main path of each ported game hands the compositor are all >= +0.
+
 The kernel itself needs the card; chip_smoke.py holds it bitwise against
 this plain version there.
 """
@@ -34,7 +41,12 @@ import torch
 from procgen_tpu.render import fast2 as j_fast2
 from procgen_tpu.render import pallas_compositor as pc
 
-from procgen_torch.render import compositor
+from procgen_torch.config import DistributionMode, EnvConfig
+from procgen_torch.games import make_game
+from procgen_torch.parallel.fast import make_fast_fns
+from procgen_torch.render import compositor, fast2
+from procgen_torch.render.pack import RenderPack
+from procgen_torch.state import seeded_template
 
 torch.set_num_threads(1)
 
@@ -127,3 +139,84 @@ def test_cpu_tensors_run_the_plain_version():
     np.testing.assert_array_equal(cut.numpy(), same.numpy())
     with pytest.raises(ValueError):
         compositor.composite_entities(*args, z_filter="above")
+
+
+def _span_case(axis, seed=3):
+    """One record per env: the tested axis from seeded and adversarial
+    (lo, size) pairs, the other axis covering the screen, tiled and
+    reflected at random, over an opaque atlas and a zero canvas."""
+    rs = np.random.RandomState(seed)
+    lo_r = rs.uniform(-40, 100, 1500).astype(np.float32)
+    size_r = np.exp(rs.uniform(np.log(1e-6), np.log(80), 1500)).astype(np.float32)
+    lo_e, size_e = compositor.edge_axes(rs, 3000)
+    lo, size = np.concatenate([lo_r, lo_e]), np.concatenate([size_r, size_e])
+    m = len(lo)
+    F = compositor._F
+    rec = np.zeros((m, 1, compositor.NF), np.float32)
+    rec[:, 0, F["bbx0"]] = rec[:, 0, F["bby0"]] = -1.0
+    rec[:, 0, F["bbw"]] = rec[:, 0, F["bbh"]] = 70.0
+    a, b = ("bbx0", "bbw") if axis == "x" else ("bby0", "bbh")
+    rec[:, 0, F[a]], rec[:, 0, F[b]] = lo, size
+    rec[:, 0, F["alpha"]] = rec[:, 0, F["ok"]] = 1.0
+    rec[:, 0, F["n_th"]] = rs.choice([1, 2, 3, 7], m)
+    rec[:, 0, F["n_tv"]] = rs.choice([1, 2, 3, 7], m)
+    rec[:, 0, F["refl"]] = rs.randint(0, 2, m)
+    return lo, size, rec
+
+
+@pytest.mark.parametrize("axis", ["x", "y"])
+def test_pixel_span_holds_every_drawn_pixel(axis):
+    lo, size, rec = _span_case(axis)
+    tables = types.SimpleNamespace(var_mips=torch.full((1, 4, 4, 4), 255, dtype=torch.uint8))
+    drawn = []
+    for i in range(0, len(lo), 500):
+        r = torch.as_tensor(rec[i:i + 500])
+        out = compositor.composite_entities_ref(
+            tables, r, None, torch.zeros((len(r), 64, 64, 3), dtype=torch.float32))
+        hit = (out != 0).any(-1).numpy()  # (n, y, x)
+        drawn.append(hit.any(1) if axis == "x" else hit.any(2))
+    drawn = np.concatenate(drawn)  # (m, 64) along the tested axis
+    first, end = compositor.pixel_span(lo, size)
+    pix = np.arange(64)[None, :]
+    inside = (pix >= first[:, None]) & (pix < end[:, None])
+    bad = np.argwhere(drawn & ~inside)
+    assert not len(bad), [(lo[i], size[i], first[i], end[i], x) for i, x in bad[:5]]
+    # not vacuous: many boxes draw, some with an edge on a pixel centre
+    assert drawn.any(1).mean() > 0.3
+    centre = (np.float32(lo) - np.float32(0.5)) % 1 == 0
+    assert (drawn.any(1) & centre).sum() > 50
+    # and the span clips: a finite on-screen box spans at most 3 pixels more
+    finite = (size > 0) & (size < 100) & (np.abs(lo) < 100)
+    assert ((end - first) <= np.ceil(size) + 3)[finite].all()
+
+
+GAMES = ["maze", "miner", "chaser", "coinrun", "leaper"]
+
+
+@pytest.mark.parametrize("game", GAMES)
+def test_main_path_canvases_are_nonnegative(game, monkeypatch):
+    """The kernel skips the pixels outside a record's span, where the plain
+    version computes c = 0 + c * (1 - 0): the same bits unless c is -0.0 (or
+    NaN).  Every canvas the main path hands the compositor is >= +0."""
+    cfg = EnvConfig(env_name=game, num_envs=2, distribution_mode=DistributionMode.hard,
+                    rand_seed=5, use_generated_assets=True)
+    gd = make_game(cfg)
+    pack = RenderPack(gd, cfg)
+    init, step = make_fast_fns(gd, cfg, pack, refill_bucket=2)
+    seen = []
+    real = compositor.composite_entities
+
+    def spy(tables, records, kmax, canvas, z_filter="all"):
+        seen.append(canvas.clone())
+        return real(tables, records, kmax, canvas, z_filter)
+
+    monkeypatch.setattr(compositor, "composite_entities", spy)
+    fs = init.cold(seeded_template(gd, cfg, 2, device="cpu"))
+    rs = np.random.RandomState(0)
+    for t in range(4):
+        fs = step(fs, torch.as_tensor(rs.randint(-1 if t == 2 else 0, 15, size=2), dtype=torch.int32))
+        fast2.render_frames2(gd, cfg, fs.state, pack)
+    assert len(seen) == 4 * (2 if gd.grid_dynamic else 1)
+    for c in seen:
+        assert torch.isfinite(c).all()
+        assert not torch.signbit(c).any(), "a canvas holds -0.0 or a negative value"
