@@ -18,7 +18,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    grid-dynamic, two compositor passes per frame with the grid drawn
    between them; coinrun hard: center-agent view, entity push, 513 records;
    leaper hard: static view, tiled and axis-rotated sprites, a pre-roll in
-   every reset):
+   every reset; ninja hard and jumper hard: center-agent views with a HUD
+   drawn after the compositor, ninja's smart throwing stars, jumper's cave
+   levelgen):
    a. the port on the card against the port on the CPU (whose plain
       versions the CPU tests hold against the JAX package): 8 envs, 40
       steps with forced resets, every state field and frame bitwise equal;
@@ -30,13 +32,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
    c. the final frames through the kernel and through the plain version,
       in each z pass, bitwise equal, each pass's input canvas >= +0 (the
       kernel skips pixels outside a record's box, which is exact only
-      without -0.0);
+      without -0.0), and render_frames2 equal to the kernel's canvas with
+      the velocity patch and the HUD painted over it;
    d. timing (CUDA events / synchronized host clock): env-steps/s, the
       kernel's ms per launch at the path's shapes beside its plain version
       and its bound, the step's split (game step, refill, frame; miner's
-      gravity sweep; leaper's pre-roll), torch ops per refill from one
-      profiled refill at the bucket size, and device time by kernel from a
-      short profiler window;
+      gravity sweep; leaper's pre-roll; jumper's cell scans and path
+      search), torch ops per refill from one profiled refill at the bucket
+      size, and device time by kernel from a short profiler window;
 4. the gym3 surface: ``ProcgenTorchEnv(..., device="cuda")`` on miner, a
    few act/observe rounds with its state on the card.
 
@@ -60,8 +63,10 @@ from procgen_torch import convert, cuda_build
 from procgen_torch.bench.profiling import profiled
 from procgen_torch.config import DistributionMode, EnvConfig
 from procgen_torch.engine.game import step_env_no_reset
+from procgen_torch.engine.levelgen.roomgen import FIND_PATH_SPAN
 from procgen_torch.env import ProcgenTorchEnv
 from procgen_torch.games import make_game
+from procgen_torch.games.jumper import SCANS_SPAN
 from procgen_torch.games.leaper import PREROLL_SPAN
 from procgen_torch.games.miner import SWEEP_SPAN
 from procgen_torch.parallel.fast import REFILL_SPAN, make_fast_fns
@@ -84,11 +89,12 @@ WARMUP = 10
 # (game, mode, timed steps) of each main path: maze is the static-grid
 # class, miner and chaser the grid-dynamic one, coinrun the center-agent
 # view with entity push, leaper the static view with tiled and rotated
-# sprites.  Leaper runs fewer steps: each of its resets pre-rolls 300
-# physics steps.
+# sprites, ninja and jumper center-agent views with a HUD.  Leaper runs
+# fewer steps: each of its resets pre-rolls 300 physics steps.
 PATHS = (
     ("maze", "hard", 100), ("miner", "hard", 100), ("chaser", "hard", 100),
-    ("coinrun", "hard", 100), ("leaper", "hard", 40),
+    ("coinrun", "hard", 100), ("leaper", "hard", 40), ("ninja", "hard", 100),
+    ("jumper", "hard", 100),
 )
 
 
@@ -154,7 +160,7 @@ def cuda_ms(fn, iters: int) -> float:
 
 # profiler spans read by the timing phase (procgen_torch/bench/profiling.py
 # sums host ns, count and torch ops per span, and device ns by kernel)
-SPANS = (REFILL_SPAN, FRAME_SPAN, SWEEP_SPAN, PREROLL_SPAN)
+SPANS = (REFILL_SPAN, FRAME_SPAN, SWEEP_SPAN, PREROLL_SPAN, SCANS_SPAN, FIND_PATH_SPAN)
 
 
 def phase_kernels_vs_plain(dev):
@@ -282,6 +288,7 @@ def phase_main_path(dev, game, mode, timed_steps):
     cold_s = time.perf_counter() - t0
     black, frames_rendered = [], 0
     episodes = torch.zeros((), dtype=torch.int64, device=dev)
+    first_step_ends = torch.zeros((), dtype=torch.int64, device=dev)  # episodes of 1 step
     reward_sum = torch.zeros((), dtype=torch.float64, device=dev)
     refills = torch.zeros((), dtype=torch.int64, device=dev)  # timed steps only
     for t in range(steps):
@@ -289,8 +296,9 @@ def phase_main_path(dev, game, mode, timed_steps):
             torch.cuda.synchronize()
             t_loop = time.perf_counter()
         acts = torch.randint(0, 15, (N_ENVS,), generator=gen, device=dev, dtype=torch.int32)
-        valid_before = fs.queue_valid
+        valid_before, fresh = fs.queue_valid, fs.state.cur_time == 0
         fs = step(fs, acts)
+        first_step_ends += (fs.state.done & fresh).sum()
         if t >= WARMUP:
             # the step's refill loop ran ceil(need / bucket) bucket refills,
             # need = envs that finished with an empty queue entry
@@ -319,7 +327,8 @@ def phase_main_path(dev, game, mode, timed_steps):
          refill_bucket=BUCKET, pack_build_s=pack_s, cold_start_s=cold_s,
          timed_steps=timed_steps, env_steps_per_s=sps, launches=launches,
          launches_per_frame=passes(gd), frames=frames_rendered,
-         episodes_ended=int(episodes), reward_sum=float(reward_sum),
+         episodes_ended=int(episodes), episodes_ended_on_first_step=int(first_step_ends),
+         reward_sum=float(reward_sum),
          nonzero_pixel_share=black, checksum=int(checksum))
     refills_per_step = int(refills) / timed_steps
     return types.SimpleNamespace(
@@ -331,7 +340,8 @@ def phase_main_path(dev, game, mode, timed_steps):
 def phase_final_frames(run, dev):
     """The final state through the kernel and through the plain version, in
     each z pass of the frame (the grid drawn between them for grid-dynamic
-    games), and through render_frames2."""
+    games), and through render_frames2, which paints the velocity patch and
+    the HUD over the composited canvas."""
     gd, cfg, states = run.gd, run.cfg, run.fs.state
     tables = fast2.get_tables(gd, cfg, run.pack, dev)
     records, kmax = fast2.entity_records(gd, cfg, states, tables)
@@ -361,10 +371,12 @@ def phase_final_frames(run, dev):
     torch.cuda.synchronize()
     if compositor.launches != before + 2 * len(filters):
         raise AssertionError(f"{run.game}: final-frame check did not launch the kernel")
-    if not torch.equal(frames, fast2.to_frames(k)):
+    painted = fast2._paint_hud(gd, cfg, states, fast2._paint_vel_info(gd, cfg, states, k))
+    if not torch.equal(frames, fast2.to_frames(painted)):
         raise AssertionError(f"{run.game}: final frames: kernel passes and render_frames2 disagree")
     emit("final_frames", game=run.game, passes=list(filters), bitwise_equal=True,
-         max_abs_err=err, shape=list(records.shape))
+         max_abs_err=err, shape=list(records.shape), hud=gd.has_hud(cfg),
+         hud_pixel_share=float((painted != k).any(-1).float().mean()))
     run.tables, run.records, run.kmax, run.inputs, run.err = tables, records, kmax, inputs, err
 
 
@@ -445,9 +457,11 @@ def phase_timing(run, dev):
     _, rp = profiled(lambda: run.init.cold(bucket_states), SPANS, cuda=False)
     if rp["count"][REFILL_SPAN] != 1:
         raise AssertionError(f"{run.game}: the profiled refill ran {rp['count'][REFILL_SPAN]} times")
-    if rp["count"][PREROLL_SPAN]:
-        extra.update(preroll_profiled_share_of_refill=rp["ns"][PREROLL_SPAN] / rp["ns"][REFILL_SPAN],
-                     torch_ops_per_preroll=rp["ops"][PREROLL_SPAN] / rp["count"][PREROLL_SPAN])
+    for name, span in (("preroll", PREROLL_SPAN), ("levelgen_scans", SCANS_SPAN),
+                       ("find_path", FIND_PATH_SPAN)):
+        if rp["count"][span]:
+            extra[f"{name}_profiled_share_of_refill"] = rp["ns"][span] / rp["ns"][REFILL_SPAN]
+            extra[f"torch_ops_per_{name}"] = rp["ops"][span] / rp["count"][span]
 
     window = 5
     box = [fs]

@@ -1,6 +1,6 @@
 """Torch ops per refill, per game step and per frame of one game.
 
-    python3 -m procgen_torch.bench.op_counts leaper hard [--envs 8] [--device cpu]
+    python3 -m procgen_torch.bench.op_counts jumper hard [--envs 8] [--device cpu]
 
 Counts the torch ops (aten ops that no other op encloses; each launches one
 or more kernels on a card) of one refill at ``--envs`` envs (the refill
@@ -21,7 +21,9 @@ import torch
 from procgen_torch.bench.profiling import profiled
 from procgen_torch.config import DistributionMode, EnvConfig
 from procgen_torch.engine.game import step_env_no_reset
+from procgen_torch.engine.levelgen.roomgen import FIND_PATH_SPAN
 from procgen_torch.games import make_game
+from procgen_torch.games.jumper import SCANS_SPAN
 from procgen_torch.games.leaper import PREROLL_SPAN
 from procgen_torch.games.miner import SWEEP_SPAN
 from procgen_torch.parallel.fast import REFILL_SPAN, make_fast_fns
@@ -30,7 +32,7 @@ from procgen_torch.render.pack import RenderPack
 from procgen_torch.state import seeded_template
 
 STEP_SPAN, FRAME_SPAN = "op_counts.game_step", "op_counts.frame"
-SPANS = (REFILL_SPAN, PREROLL_SPAN, SWEEP_SPAN, STEP_SPAN, FRAME_SPAN)
+SPANS = (REFILL_SPAN, PREROLL_SPAN, SCANS_SPAN, FIND_PATH_SPAN, SWEEP_SPAN, STEP_SPAN, FRAME_SPAN)
 
 
 def main() -> None:
@@ -63,8 +65,10 @@ def main() -> None:
                torch_ops_per_refill=refill["ops"][REFILL_SPAN],
                torch_ops_per_game_step=step["ops"][STEP_SPAN],
                torch_ops_per_frame=step["ops"][FRAME_SPAN])
-    if refill["count"][PREROLL_SPAN]:
-        out["torch_ops_per_preroll"] = refill["ops"][PREROLL_SPAN] / refill["count"][PREROLL_SPAN]
+    for name, span in (("preroll", PREROLL_SPAN), ("levelgen_scans", SCANS_SPAN),
+                       ("find_path", FIND_PATH_SPAN)):
+        if refill["count"][span]:
+            out[f"torch_ops_per_{name}"] = refill["ops"][span] / refill["count"][span]
     if step["count"][SWEEP_SPAN]:
         out["torch_ops_per_sweep"] = step["ops"][SWEEP_SPAN]
     print(json.dumps(out))

@@ -153,10 +153,25 @@ class GameDef:
         """Dynamic image_for_type for entities: (N, E) image types or None."""
         return None
 
+    def hud_color_rects(self, cfg, states):
+        """Post-entity screen-space fillRects (per-game game_draw overlays):
+        None, or (rects (N, K, 4) [x, y_top, w, h] in world units scaled by
+        ``unit`` from the top-left -- get_abs_rect, bag.cpp:803-805 -- and
+        colors, K RGB triples of Python numbers)."""
+        return None
+
+    def hud_overlay(self, cfg, states, out, SX, SY):
+        """Free-form screen-space overlay drawn after hud_color_rects on the
+        f32 canvas ``out`` (N, 64, 64, 3); ``SX``/``SY`` are the pixel-centre
+        coordinates, (1, 1, 64) and (1, 64, 1).  Default: none."""
+        return out
+
     def has_hud(self, cfg) -> bool:
-        """True for games with screen-space overlays (hud_color_rects or
-        hud_overlay in the reference package); none is ported yet."""
-        return False
+        """True for games with screen-space overlays."""
+        return (
+            type(self).hud_color_rects is not GameDef.hud_color_rects
+            or type(self).hud_overlay is not GameDef.hud_overlay
+        )
 
     # ---- per-game state extras ----
     def init_extra(self, cfg, num_envs: int, device) -> dict:
@@ -252,6 +267,8 @@ class GameDef:
         return self.handle_agent_collision(cfg, state, mask)
 
     def handle_grid_collision(self, cfg, state, ent_idx, cell_type, cx, cy, valid):
+        """One overlapped cell of entity ``ent_idx`` (an int, or (N,) per-env
+        slots); ``cell_type``/``cx``/``cy``/``valid`` are (N,)."""
         return state
 
     def choose_center(self, cfg, state):
@@ -312,10 +329,10 @@ def base_game_reset(gd: GameDef, cfg, state: EnvState, rs):
 
 
 def base_game_step(gd: GameDef, cfg, state: EnvState) -> EnvState:
-    if gd.uses_pair_collisions or gd.smart_entities_grid_collide:
+    if gd.uses_pair_collisions:
         raise NotImplementedError(
-            "procgen_torch: pair collisions and smart-entity grid collisions "
-            "are not ported yet"
+            f"procgen_torch: {gd.name}: pair collisions (dodgeball) are not "
+            "ported yet"
         )
     mt, sri = R.mt_randint(state.rng, 0, 1000000)
     action = state.action
@@ -364,6 +381,8 @@ def base_game_step(gd: GameDef, cfg, state: EnvState) -> EnvState:
     state = gd.agent_collision_phase(cfg, state)
     if type(gd).handle_grid_collision is not GameDef.handle_grid_collision:
         state = ph.check_grid_collisions(gd, cfg, state, eo.AGENT)
+    if not gd.agent_only_smart and gd.smart_entities_grid_collide:
+        state = smart_grid_collisions(gd, cfg, state)
 
     # erase + OOB (bag.cpp:743-745)
     ents = eo.compact(state.ents, state.main_width, state.main_height)
@@ -373,3 +392,24 @@ def base_game_step(gd: GameDef, cfg, state: EnvState) -> EnvState:
         state.main_width, state.main_height,
     )
     return state.replace(ents=ents, done=state.done | agent_oob)
+
+
+def smart_grid_collisions(gd: GameDef, cfg, state: EnvState) -> EnvState:
+    """Grid collisions of the other smart entities (bag.cpp:738-740), for
+    games whose handler answers them (ninja's throwing stars).  Handlers
+    write the grid and append entities, so the dispatches stay sequential,
+    in the reference's reverse slot order: a stable sort puts the smart
+    slots first, descending.  The loop stops after the batch's largest
+    smart count, read once per step (exact: a dispatch past an env's count
+    is gated off and changes nothing)."""
+    ents = state.ents
+    E = ents.capacity
+    M = min(gd.max_smart_entities or E, E)
+    slot = torch.arange(E, device=ents.x.device)
+    smart_alive = ents.alive & ents.smart_step & (slot != eo.AGENT)[None, :]
+    key = torch.where(smart_alive, E - 1 - slot, 2 * E)
+    order = torch.sort(key, dim=1, stable=True).indices
+    n_smart = smart_alive.sum(1)
+    for k in range(min(M, int(n_smart.max()))):
+        state = ph.check_grid_collisions(gd, cfg, state, order[:, k], active=k < n_smart)
+    return state

@@ -111,22 +111,25 @@ def append_entity(ents: EntityTable, fields: dict, active=True):
 
 
 def append_entities_masked(ents: EntityTable, fields: dict, mask, descending=True):
-    """Append one entity per masked source slot (mask (N, E)), in descending
-    (or ascending) source-slot order; every field is an (N, E) candidate
-    tensor or a Python number, and ``alive`` is set.  Equivalent to a loop
-    of ``append_entity`` calls over the source slots in that order (the
+    """Append one entity per masked source (mask (N, K): the table's own
+    slots, K = E, or any other sources, e.g. grid cells), in descending (or
+    ascending) source order; every field is an (N, K) candidate tensor or a
+    Python number, and ``alive`` is set.  Equivalent to a loop of
+    ``append_entity`` calls over the sources in that order (the
     destinations are dead slots, never a source).  Overflow appends are
     dropped."""
     E = ents.capacity
+    K = mask.shape[1]
     dev = mask.device
     slot = torch.arange(E, device=dev)
-    key = torch.where(mask, (E - 1 - slot) if descending else slot, 2 * E)
+    source = torch.arange(K, device=dev)
+    key = torch.where(mask, (K - 1 - source) if descending else source, 2 * K)
     order = torch.sort(key, dim=1, stable=True).indices  # masked sources first
     n = mask.to(I32).sum(1, keepdim=True)
     cnt = ents.alive.to(I32).sum(1, keepdim=True)
     k = slot[None, :] - cnt  # destination slot j takes source number j - cnt
     dest = (k >= 0) & (k < n)
-    src = torch.gather(order, 1, k.clamp(0, E - 1))
+    src = torch.gather(order, 1, k.clamp(0, K - 1))
     new = {"alive": ents.alive | dest}
     for name, val in fields.items():
         arr = getattr(ents, name)

@@ -2,10 +2,11 @@
 ``procgen_tpu/engine/physics.py``; reference basic-abstract-game.cpp:270-372
 sub_step, :593-656 basic_step_object, :1086-1098 step_entities).
 
-Batched over a leading env axis.  Movers interact with grid cells and, in
-games that push (coinrun's crates), with the entity table through the
-vectorized push/block branch; the sequential reflect sweep and pure entity
-blocking arrive with the games that use them.
+Batched over a leading env axis.  Movers interact with grid cells (ninja's
+throwing stars stop dead on a wall probe) and, in games that push
+(coinrun's crates), with the entity table through the vectorized push/block
+branch; the sequential reflect sweep and pure entity blocking arrive with
+the games that use them.
 """
 
 from __future__ import annotations
@@ -67,6 +68,18 @@ def set_obj(state: EnvState, x, y, obj) -> EnvState:
     return state.replace(grid=grid.reshape(N, H, W))
 
 
+def fill_rect(grid, x, y, dx, dy, v):
+    """fill_elem: ``grid[y:y+dy, x:x+dx] = v`` in every env of an (N, H, W)
+    grid; origins and sizes are (N,) tensors or numbers, and a size <= 0
+    fills nothing."""
+    N, H, W = grid.shape
+    xs = torch.arange(W, device=grid.device)[None, None, :]
+    ys = torch.arange(H, device=grid.device)[None, :, None]
+    x, y, dx, dy = (_per_env(t, grid) if isinstance(t, torch.Tensor) else t for t in (x, y, dx, dy))
+    m = (xs >= x) & (xs < x + dx) & (ys >= y) & (ys < y + dy)
+    return torch.where(m, v, grid)
+
+
 # ---------------------------------------------------------------------------
 # sub_step / basic_step_object
 # ---------------------------------------------------------------------------
@@ -78,11 +91,6 @@ def check_physics_features(gd):
         raise NotImplementedError(
             f"procgen_torch: {gd.name}: the sequential entity-reflect sweep "
             "(dodgeball) is not ported yet"
-        )
-    if gd.block_zeroes_velocity_types:
-        raise NotImplementedError(
-            f"procgen_torch: {gd.name}: velocity-zeroing wall blocks (ninja's "
-            "throwing stars) are not ported yet"
         )
     if gd.uses_entity_block and not gd.uses_entity_push:
         raise NotImplementedError(
@@ -217,6 +225,16 @@ def sub_step(gd, cfg, state: EnvState, idxs, _vx, _vy, active, n_live=None):
     nvx = torch.where(reflect & is_horizontal, -obj["vx"], obj["vx"])
     nvy = torch.where(reflect & ~is_horizontal, -obj["vy"], obj["vy"])
 
+    if gd.block_zeroes_velocity_types:
+        # ninja's is_blocked zeroes a throwing star's velocity when a wall
+        # probe blocks it (ninja.cpp:139-152): both components stop
+        zmask = torch.zeros_like(block)
+        for t_ in gd.block_zeroes_velocity_types:
+            zmask = zmask | (obj["type"] == t_)
+        stopped = block & zmask & active
+        nvx = torch.where(stopped, 0.0, nvx)
+        nvy = torch.where(stopped, 0.0, nvy)
+
     if gd.uses_entity_push:
         state, nx, ny, nvx, nvy, block2 = _entity_push(
             gd, cfg, state, idxs, obj, nx, ny, nvx, nvy, is_horizontal, active,
@@ -332,7 +350,11 @@ def step_entities(gd, cfg, state: EnvState) -> EnvState:
     sub-step together: no ported game lets one smart entity block, reflect
     off or push another, so the reference's reverse slot order has no
     observable effect (audited per game in the reference package's
-    physics.step_entities).  When the agent is the only smart entity it
+    physics.step_entities).  The smart movers: chaser's enemies (grid
+    blocking only), coinrun's walking enemies (crates, which are not smart,
+    and the grid) and ninja's throwing stars, which ``is_blocked`` tests
+    against grid cell types only, so neither a star nor the agent blocks or
+    pushes another smart entity.  When the agent is the only smart entity it
     takes the sub-step path alone (slot 0, stepped last)."""
     ents = state.ents
     E = ents.capacity
@@ -367,13 +389,15 @@ def step_entities(gd, cfg, state: EnvState) -> EnvState:
     return state.replace(ents=entity_euler_step_all(state.ents, smart_alive))
 
 
-def check_grid_collisions(gd, cfg, state: EnvState, idx: int, active=True) -> EnvState:
-    """bag.cpp:145-165 for smart entity slot ``idx``: dispatch the game's
+def check_grid_collisions(gd, cfg, state: EnvState, idx, active=True) -> EnvState:
+    """bag.cpp:145-165 for smart entity slot ``idx`` (an int shared by all
+    envs, or an (N,) int64 tensor of per-env slots): dispatch the game's
     handler over the <= 4 overlapped cells in reference order (x ascending
-    outer, y ascending inner)."""
-    ents = state.ents
-    ax, ay = ents.x[:, idx], ents.y[:, idx]
-    arx, ary = ents.rx[:, idx], ents.ry[:, idx]
+    outer, y ascending inner).  ``active`` (bool (N,) or True) gates the
+    dispatch through the handler's ``valid``."""
+    slots = idx[:, None] if isinstance(idx, torch.Tensor) else [idx]
+    obj = eo.read_slots(state.ents, slots, ("x", "y", "rx", "ry"))
+    ax, ay, arx, ary = (obj[f][:, 0] for f in ("x", "y", "rx", "ry"))
     # int() truncates toward zero
     min_x = (ax - (arx + POS_EPS)).to(I32)
     max_x = (ax + (arx + POS_EPS)).to(I32)

@@ -95,6 +95,35 @@ def fadd32(cfg, a, b):
     return _t(a) + _t(b)
 
 
+def dcos_np(x) -> np.ndarray:
+    """C++ ``cos(float)`` of the double overload, narrowed at a float store:
+    ``float(cos(double(x)))`` for float32 ``x``, on the host.  Callers with
+    a handful of angles (ninja's stars) tabulate it, so the card and the CPU
+    read the same bits (their float trig differs in the last bit)."""
+    return np.cos(np.asarray(x, np.float32).astype(np.float64)).astype(np.float32)
+
+
+def dsin_np(x) -> np.ndarray:
+    return np.sin(np.asarray(x, np.float32).astype(np.float64)).astype(np.float32)
+
+
+def atan2_wide(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """float32 ``atan2`` computed in float64 and narrowed.  The card and the
+    CPU agree except where the double result lies within a few of its ulps
+    of a float32 rounding boundary (jumper's compass, which has no
+    reference bits: it approximates Qt's antialiased drawing)."""
+    return torch.atan2(y.to(F64), x.to(F64)).to(F32)
+
+
+def cos_wide(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``cos`` computed in float64 and narrowed (see atan2_wide)."""
+    return torch.cos(x.to(F64)).to(F32)
+
+
+def sin_wide(x: torch.Tensor) -> torch.Tensor:
+    return torch.sin(x.to(F64)).to(F32)
+
+
 def fsign(x: torch.Tensor) -> torch.Tensor:
     """cpp-utils.h:42-44 ``sign()``: +1 / 0 / -1 as float32, where the 0
     branch covers both IEEE zeros and returns +0.0 (``torch.sign`` keeps

@@ -1,9 +1,9 @@
 """Game registry: name -> GameDef factory (reference game-registry.h).
 
 Ported so far: maze (static grid), miner and chaser (grid-dynamic), coinrun
-(center-agent platformer with entity push) and leaper (static view, tiled
-and axis-rotated sprites); the other games of ``procgen_tpu.games`` follow
-in later slices."""
+(center-agent platformer with entity push), leaper (static view, tiled and
+axis-rotated sprites), ninja and jumper (center-agent platformers with a
+HUD); the other games of ``procgen_tpu.games`` follow in later slices."""
 
 from __future__ import annotations
 
@@ -34,9 +34,11 @@ def make_game(cfg):
 def _import_all():
     import procgen_torch.games.chaser  # noqa: F401
     import procgen_torch.games.coinrun  # noqa: F401
+    import procgen_torch.games.jumper  # noqa: F401
     import procgen_torch.games.leaper  # noqa: F401
     import procgen_torch.games.maze  # noqa: F401
     import procgen_torch.games.miner  # noqa: F401
+    import procgen_torch.games.ninja  # noqa: F401
 
 
 def available_games():

@@ -291,18 +291,9 @@ class CoinRun(GameDef):
         return ents, rs
 
     @staticmethod
-    def _fill(grid, x, y, dx, dy, v):
-        """grid[y:y+dy, x:x+dx] = v per env (origins and sizes (N,) or
-        numbers; empty where a size is <= 0)."""
-        ar = torch.arange(64, device=grid.device)
-        xs, ys = ar[None, None, :], ar[None, :, None]
-        x, y, dx, dy = (_col3(t) for t in (x, y, dx, dy))
-        m = (xs >= x) & (xs < x + dx) & (ys >= y) & (ys < y + dy)
-        return torch.where(m, v, grid)
-
-    def _fill_block_top(self, grid, x, y, dx, dy, fill, top):
-        grid = self._fill(grid, x, y, dx, dy - 1, fill)
-        return self._fill(grid, x, y + dy - 1, dx, 1, top)
+    def _fill_block_top(grid, x, y, dx, dy, fill, top):
+        grid = ph.fill_rect(grid, x, y, dx, dy - 1, fill)
+        return ph.fill_rect(grid, x, y + dy - 1, dx, 1, top)
 
     def game_reset(self, cfg, state: EnvState, rs):
         state, rs = base_game_reset(self, cfg, state, rs)
@@ -334,10 +325,10 @@ class CoinRun(GameDef):
         extra["wall_theme"] = wall_theme
 
         grid = state.grid
-        grid = self._fill(grid, 0, 0, mw, 1, WALL_TOP)
-        grid = self._fill(grid, 0, 0, 1, mh, WALL_MID)
-        grid = self._fill(grid, mw - 1, 0, 1, mh, WALL_MID)
-        grid = self._fill(grid, 0, mh - 1, mw, 1, WALL_MID)
+        grid = ph.fill_rect(grid, 0, 0, mw, 1, WALL_TOP)
+        grid = ph.fill_rect(grid, 0, 0, 1, mh, WALL_MID)
+        grid = ph.fill_rect(grid, mw - 1, 0, 1, mh, WALL_MID)
+        grid = ph.fill_rect(grid, 0, mh - 1, mw, 1, WALL_MID)
 
         # generate_coin_to_the_right (coinrun.cpp:265-414)
         rs, dr = R.rs_randn(rs, 3)
@@ -463,7 +454,7 @@ class CoinRun(GameDef):
         gy = torch.clamp(curr_y, 0, 63).to(torch.int64)
         grid[b, gy, gx] = GOAL
         grid = self._fill_block_top(grid, curr_x, 0, 1, curr_y, WALL_MID, WALL_TOP)
-        grid = self._fill(grid, curr_x + 1, 0, mw - curr_x - 1, mh, WALL_MID)
+        grid = ph.fill_rect(grid, curr_x + 1, 0, mw - curr_x - 1, mh, WALL_MID)
 
         return state.replace(ents=ents, grid=grid.to(I32), extra=extra), rs
 

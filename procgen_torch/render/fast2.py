@@ -9,11 +9,14 @@ sprite compositor is a hand-written CUDA kernel
 Render classes covered: static-grid games (maze's bg + grid baked per
 level, entities composited per step), grid-dynamic games (miner, chaser: bg
 baked per level, grid drawn per step between two composites, colour-rect
-cells) and center-agent views (maze and miner memory).  Dynamic backgrounds
-and HUD overlays arrive with the games that use them.
+cells), center-agent views (coinrun, ninja, jumper, maze and miner memory)
+and screen-space HUD overlays drawn after the sprites (ninja's charge bar,
+jumper's compass).  Dynamic backgrounds arrive with the games that use them.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -21,6 +24,7 @@ import torch
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.fmath import div_const, f32
 from procgen_torch.render import compositor
+from procgen_torch.render.renderer import _pixel_world_coords
 from procgen_torch.state import F32, I32
 
 RES = 64
@@ -83,6 +87,13 @@ class FrameTables:
         self.bg_mip = torch.as_tensor(pack.bg_mip64).to(dev)  # (NB, 64, 64, 3) u8
         self.bg_dims = torch.as_tensor(np.asarray(pack.bg_dims, np.float32)).to(dev)
         self.NB = int(pack.bg_mip64.shape[0])
+
+
+@functools.lru_cache(maxsize=None)
+def rgb_constant(rgb: tuple, device) -> torch.Tensor:
+    """A float32 RGB triple on ``device``, made once per device (a
+    host-to-device copy synchronizes the stream)."""
+    return torch.tensor(rgb, dtype=F32).to(device)
 
 
 def get_tables(gd, cfg, pack, device) -> FrameTables:
@@ -177,11 +188,8 @@ def bg_pass(gd, cfg, states, tables, bm_f32):
 def _pixel_cells(states):
     """Per-pixel world cell indices + within-cell texel coords (all (N, 64),
     separable by axis)."""
-    dev = states.unit.device
-    px = (torch.arange(RES, dtype=F32, device=dev) + 0.5)[None, :]
-    unit = states.unit[:, None]
-    wx = (px + states.x_off[:, None]) / unit
-    wy = states.view_dim[:, None] - (px - states.y_off[:, None]) / unit
+    _, _, wx, wy = _pixel_world_coords(states)
+    wx, wy = wx[:, 0, :], wy[:, :, 0]
     cxi = torch.floor(wx + RENDER_EPS).to(I32)
     cyi = torch.floor(wy + RENDER_EPS).to(I32)
     cu = div_const(wx - (cxi.to(F32) - RENDER_EPS), _CELL_DIV)
@@ -414,17 +422,27 @@ def _paint_vel_info(gd, cfg, states, out):
     return torch.where(in2, s2[:, None, None, None], out)
 
 
+def _paint_hud(gd, cfg, states, out):
+    """Per-game screen-space overlays after the sprites (renderer.py:492-506
+    of the reference package): the fillRects of ``hud_color_rects`` (world
+    units times ``unit``, from the top-left), then ``hud_overlay``."""
+    if not gd.has_hud(cfg):
+        return out
+    SX, SY, _, _ = _pixel_world_coords(states)
+    hud = gd.hud_color_rects(cfg, states)
+    if hud is not None:
+        rects, colors = hud
+        unit = states.unit[:, None, None]
+        for k, color in enumerate(colors):
+            x0, y0, w, h = (rects[:, k, i][:, None, None] * unit for i in range(4))
+            inside = (SX >= x0) & (SX < x0 + w) & (SY >= y0) & (SY < y0 + h)
+            out = torch.where(inside[..., None], rgb_constant(tuple(color), out.device), out)
+    return gd.hud_overlay(cfg, states, out, SX, SY)
+
+
 # ---------------------------------------------------------------------------
 # Frame + static entry points
 # ---------------------------------------------------------------------------
-
-
-def _check_render_class(gd, cfg):
-    if gd.has_hud(cfg):
-        raise NotImplementedError(
-            f"procgen_torch: {gd.name} draws a HUD overlay; the HUD render "
-            "class is not ported yet"
-        )
 
 
 def to_frames(canvas: torch.Tensor) -> torch.Tensor:
@@ -437,8 +455,7 @@ def render_frames2(gd, cfg, states, pack) -> torch.Tensor:
     composite runs the CUDA kernel for CUDA tensors: once per frame, or
     twice for grid-dynamic games, whose grid is drawn between the entities
     under it (z < 0) and the rest (fast2.py:670-680 of the reference
-    package)."""
-    _check_render_class(gd, cfg)
+    package), then the velocity patch and the HUD."""
     tables = get_tables(gd, cfg, pack, states.done.device)
     center = gd.center_agent(cfg)
     if center:
@@ -457,6 +474,7 @@ def render_frames2(gd, cfg, states, pack) -> torch.Tensor:
             canvas = grid_pass(gd, cfg, states, tables, canvas)
         canvas = compositor.composite_entities(tables, records, kmax, canvas)
     canvas = _paint_vel_info(gd, cfg, states, canvas)
+    canvas = _paint_hud(gd, cfg, states, canvas)
     return to_frames(canvas)
 
 
@@ -464,7 +482,6 @@ def render_static2(gd, cfg, states, pack) -> torch.Tensor:
     """Per-level static layer (batched) -> (N, 64, 64, 3) uint8: static-grid
     games bake bg + grid, grid-dynamic games the bg only; center-agent views
     cache the selected bg mip."""
-    _check_render_class(gd, cfg)
     tables = get_tables(gd, cfg, pack, states.done.device)
     bm = _select_bg(tables, states.background_index)
     if gd.center_agent(cfg):

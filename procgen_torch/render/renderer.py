@@ -1,7 +1,7 @@
 """View parameters (counterpart of ``procgen_tpu/render/renderer.py``).
 
-Only ``update_view_params`` is ported in this slice; the gather/spec render
-path (render_env, render_frame) follows later (ROADMAP A11)."""
+Ported: ``update_view_params`` and ``_pixel_world_coords``; the gather/spec
+render path (render_env, render_frame) follows later (ROADMAP A11)."""
 
 from __future__ import annotations
 
@@ -32,3 +32,15 @@ def update_view_params(gd, cfg, state: EnvState) -> EnvState:
         center_x=cx, center_y=cy, visibility=visibility,
         unit=unit, view_dim=view_dim, x_off=x_off, y_off=y_off,
     )
+
+
+def _pixel_world_coords(states: EnvState):
+    """Pixel centres of the 64x64 frame, (1, 1, 64) and (1, 64, 1), and
+    their world coordinates, (N, 1, 64) and (N, 64, 1)."""
+    dev = states.unit.device
+    p = torch.arange(64, dtype=F32, device=dev) + 0.5
+    SX, SY = p[None, None, :], p[None, :, None]
+    unit = states.unit[:, None, None]
+    wx = (SX + states.x_off[:, None, None]) / unit
+    wy = states.view_dim[:, None, None] - (SY - states.y_off[:, None, None]) / unit
+    return SX, SY, wx, wy

@@ -167,12 +167,18 @@ def _port_reset(gd, cfg, pack, state, which):
     return tree_select(which, fresh, state)
 
 
-def test_coinrun_step_matches_reference(monkeypatch):
-    pin_jax_roundings(monkeypatch)
-    j_cfg, cfg = _cfgs()
+def stepped_against_reference(j_cfg, cfg, policy, steps, prepare=None):
+    """Step a port batch and the JAX package's side by side from port-made
+    levels carried into the JAX EnvState, seeded actions ``policy(rs)``.
+    After each step every field and the frame must agree (the view_dim
+    rule of tests/test_torch_fast_path.py); then the port's state is
+    yielded.  Finished envs get a new level from the port, carried over
+    again; ``prepare(state, which)`` may edit the new levels of ``which``
+    first (both packages then step the edited level)."""
     j_gd, gd = j_make_game(j_cfg), make_game(cfg)
     j_pack, pack = JPack(j_gd, j_cfg), RenderPack(gd, cfg)
     carry = JaxCarrier(j_gd, j_cfg)
+    prepare = prepare or (lambda state, which: state)
 
     @jax.jit
     def j_step(states, acts):
@@ -181,14 +187,13 @@ def test_coinrun_step_matches_reference(monkeypatch):
         s = jax.vmap(lambda s: j_renderer.update_view_params(j_gd, j_cfg, s))(s)
         return s, j_fast2.render_frames2(j_gd, j_cfg, s, j_pack)
 
+    every = torch.ones(N, dtype=torch.bool)
     state = seeded_template(gd, cfg, N, device="cpu")
-    state = _port_reset(gd, cfg, pack, state, torch.ones(N, dtype=torch.bool))
+    state = prepare(_port_reset(gd, cfg, pack, state, every), every)
     j_state = carry(state)
-
     rs = np.random.RandomState(5)
-    counts = dict(levels=N, goals=0, deaths=0, on_crate=0, trails=0)
-    for t in range(150):
-        acts = _policy(rs)
+    for t in range(steps):
+        acts = policy(rs)
         j_state, j_frame = j_step(j_state, jnp.asarray(acts))
         state = step_env_no_reset(gd, cfg, state, torch.as_tensor(acts))
         state = update_view_params(gd, cfg, finish_step(cfg, state))
@@ -199,18 +204,26 @@ def test_coinrun_step_matches_reference(monkeypatch):
             np.asarray(j_frame), fast2.render_frames2(gd, cfg, state, pack).numpy(),
             err_msg=f"frame diverged at step {t}",
         )
+        yield state
+        if bool(state.done.any()):
+            done = state.done
+            state = prepare(_port_reset(gd, cfg, pack, state, done), done)
+            j_state = carry(state)
+    assert compositor.launches == 0  # CPU tensors never reach the kernel
+
+
+def test_coinrun_step_matches_reference(monkeypatch):
+    pin_jax_roundings(monkeypatch)
+    counts = dict(levels=N, goals=0, deaths=0, on_crate=0, trails=0)
+    for state in stepped_against_reference(*_cfgs(), _policy, 150):
         counts["goals"] += int((state.reward > 0).sum())
         counts["deaths"] += int((state.done & (state.reward == 0)).sum())
         counts["on_crate"] += int(state.extra["is_on_crate"].sum())
         counts["trails"] += int((state.ents.alive & (state.ents.type == O.TRAIL)).sum())
-        if bool(state.done.any()):
-            counts["levels"] += int(state.done.sum())
-            state = _port_reset(gd, cfg, pack, state, state.done)
-            j_state = carry(state)
+        counts["levels"] += int(state.done.sum())
     assert counts["goals"] > 0 and counts["deaths"] > 0, counts
     assert counts["on_crate"] > 0 and counts["trails"] > 0, counts
     assert counts["levels"] >= 2 * N, counts
-    assert compositor.launches == 0  # CPU tensors never reach the kernel
 
 
 # Fields a fast-path level carries from the step that generated it: a queue
@@ -224,8 +237,11 @@ _ACTION_FIELDS = (
 )
 
 
-def test_coinrun_fast_path_matches_inline():
-    _, cfg = _cfgs()
+def check_fast_path_matches_inline(cfg, policy):
+    """The port's fast path (refill bucket 2) against its inline path
+    (step_env with reset), forced resets at t = 40, 41 and 90: every field
+    but the action bookkeeping, and every frame.  The cold-start state also
+    survives a numpy round trip through convert.py, dtypes included."""
     gd = make_game(cfg)
     pack = RenderPack(gd, cfg)
     init, step = make_fast_fns(gd, cfg, pack, refill_bucket=2)
@@ -240,10 +256,13 @@ def test_coinrun_fast_path_matches_inline():
         }
 
     assert_fields_equal(fields(inline), fields(fs.state), "at cold start")
+    flat = convert.state_to_numpy(fs.state)
+    back = convert.state_to_numpy(convert.state_from_numpy(flat, "cpu"))
+    assert_fields_equal(flat, back, "after a numpy round trip")
     rs = np.random.RandomState(8)
     resets = 0
     for t in range(100):
-        acts = np.full((N,), -1, np.int32) if t in (40, 41, 90) else _policy(rs)
+        acts = np.full((N,), -1, np.int32) if t in (40, 41, 90) else policy(rs)
         fs = step(fs, torch.as_tensor(acts))
         stepped = step_env(gd, cfg, inline, torch.as_tensor(acts))
         stepped = update_view_params(gd, cfg, stepped)
@@ -261,3 +280,8 @@ def test_coinrun_fast_path_matches_inline():
             err_msg=f"frame diverged at step {t}",
         )
     assert resets >= 3 * N  # the forced resets ran the queue swap
+    return fs
+
+
+def test_coinrun_fast_path_matches_inline():
+    check_fast_path_matches_inline(_cfgs()[1], _policy)

@@ -4,8 +4,8 @@
 Maze and miner, 4 envs, 32 act/observe rounds with random actions and a
 forced reset (action -1): rewards, firsts, frames and infos equal, and the
 whole state equal field for field (the inline auto-reset and the per-level
-static layer included).  Coinrun and leaper run through the surface on the
-port alone.  Then the master-seed dealing of the joint env and the
+static layer included).  Coinrun, leaper, ninja and jumper run through the
+surface on the port alone.  Then the master-seed dealing of the joint env and the
 surface's refusals.
 """
 
@@ -57,12 +57,12 @@ def test_env_matches_reference(game, mode):
     assert firsts >= 1
 
 
-@pytest.mark.parametrize("game", ["coinrun", "leaper"])
+@pytest.mark.parametrize("game", ["coinrun", "leaper", "ninja", "jumper"])
 def test_env_runs_new_games(game):
-    """The gym3 surface on coinrun and leaper (their steps and resets are
-    held against procgen_tpu in tests/test_torch_coinrun.py and
-    test_torch_leaper.py): act/observe rounds with a forced reset give a
-    new level and a first flag, frames on the view of the live state."""
+    """The gym3 surface on coinrun, leaper, ninja and jumper (their steps and
+    resets are held against procgen_tpu in tests/test_torch_<game>.py):
+    act/observe rounds with a forced reset give a new level and a first
+    flag, frames on the view of the live state."""
     env = ProcgenTorchEnv(2, game, rand_seed=9, use_generated_assets=True, device="cpu")
     seeds = env.state.current_level_seed.clone()
     rng = np.random.RandomState(4)

@@ -54,7 +54,9 @@ def pin_jax_roundings(monkeypatch):
     rounds each product: coinrun's air control, coinrun.cpp:158; the
     sub-step's x + vx * pct when pct is inexact; the random agent spawn,
     bag.cpp:781-782).  Parity mode routes them through a host callback that
-    rounds as the reference does, which is what the port computes."""
+    rounds as the reference does, which is what the port computes.  dcos
+    and dsin (the double cos/sin of a float, narrowed) go through a host
+    callback too: on the fast path they are XLA's float cos and sin."""
 
     def fadd32(cfg, a, b):
         a, b = jnp.broadcast_arrays(jnp.asarray(a, jnp.float32), jnp.asarray(b, jnp.float32))
@@ -66,8 +68,22 @@ def pin_jax_roundings(monkeypatch):
         )
         return j_fmath._callback(j_fmath._np_fmuladd, r, r, scale, off)
 
+    def double_trig(fn):
+        # C++ cos(float) of the double overload, narrowed at the float store
+        # (ninja's star velocity): XLA's float cos need not give those bits
+        def host(x):
+            return fn(np.asarray(x, np.float32).astype(np.float64)).astype(np.float32)
+
+        def trig(cfg, x):
+            x = jnp.asarray(x, jnp.float32)
+            return j_fmath._callback(host, x, x)
+
+        return trig
+
     monkeypatch.setattr(j_fmath, "fadd32", fadd32)
     monkeypatch.setattr(j_fmath, "fmuladd32", fmuladd32)
+    monkeypatch.setattr(j_fmath, "dcos", double_trig(np.cos))
+    monkeypatch.setattr(j_fmath, "dsin", double_trig(np.sin))
 
 
 # One known XLA:CPU site.  update_view_params computes view_dim = 64 /
@@ -187,9 +203,11 @@ def test_port_imports_no_jax():
 import importlib, pkgutil, sys
 import procgen_torch.env, procgen_torch.games.miner, procgen_torch.games.chaser
 import procgen_torch.games.coinrun, procgen_torch.games.leaper
-import procgen_torch.engine.rand_util
+import procgen_torch.games.ninja, procgen_torch.games.jumper
+import procgen_torch.engine.rand_util, procgen_torch.engine.levelgen.roomgen
 from procgen_torch.games import available_games
-assert available_games() == ["chaser", "coinrun", "leaper", "maze", "miner"], available_games()
+assert available_games() == [
+    "chaser", "coinrun", "jumper", "leaper", "maze", "miner", "ninja"], available_games()
 import procgen_torch
 for m in pkgutil.walk_packages(procgen_torch.__path__, "procgen_torch."):
     importlib.import_module(m.name)
