@@ -14,19 +14,27 @@ Phases (each prints one JSON line; any failure exits non-zero):
    box edges on pixel centres and one ulp off, sizes of 1e-6, boxes at
    +-1e6 and off screen, tiled boxes, overlapping records of different z,
    a canvas half exactly 0, kmax 0, 1 and E, every z_filter): bitwise equal;
-3. for each main path (maze hard: static grid; miner hard and chaser hard:
-   grid-dynamic, two compositor passes per frame with the grid drawn
-   between them; coinrun hard: center-agent view, entity push, 513 records;
-   leaper hard: static view, tiled and axis-rotated sprites, a pre-roll in
-   every reset; ninja hard and jumper hard: center-agent views with a HUD
-   drawn after the compositor, ninja's smart throwing stars, jumper's cave
-   levelgen):
+3. the double cos/sin of a float angle (caveflyer's ship), ``fmath.dsincos``:
+   on 2^24 float32 angles in [-300, 300] the card's bits against the CPU's
+   (must be equal), and the count of angles where torch's own float64
+   cos/sin, narrowed, differ between the two;
+4. for each of the nine main paths (maze hard: static grid; miner hard and
+   chaser hard: grid-dynamic, two compositor passes per frame with the
+   grid drawn between them; coinrun hard: center-agent view, entity push,
+   513 records; leaper hard: static view, tiled and axis-rotated sprites, a
+   pre-roll in every reset; ninja hard and jumper hard: center-agent views
+   with a HUD drawn after the compositor, ninja's smart throwing stars,
+   jumper's cave levelgen; caveflyer hard: center-agent view, free
+   rotation, pair collisions, the cave room generator; dodgeball hard:
+   static view, free rotation, pair collisions, the entity-reflect sweep,
+   tiled lava walls):
    a. the port on the card against the port on the CPU (whose plain
       versions the CPU tests hold against the JAX package): 8 envs, 40
       steps with forced resets, every state field and frame bitwise equal;
    b. the main path: 4096 envs, refill bucket 512, generated assets, seed
-      123: cold start, then 110 rendered steps with random actions (leaper
-      50: its resets pre-roll 300 physics steps); the compositor kernel's
+      123: cold start, then 10 warm-up and 100 timed rendered steps with
+      random actions on caveflyer and dodgeball, 50 on the seven earlier
+      paths (leaper 20: its resets pre-roll 300 physics steps); the kernel's
       launches counted from 0 just before and read just after (launches ==
       frames, or 2 x frames for grid-dynamic games), frames not black;
    c. the final frames through the kernel and through the plain version,
@@ -38,9 +46,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
       kernel's ms per launch at the path's shapes beside its plain version
       and its bound, the step's split (game step, refill, frame; miner's
       gravity sweep; leaper's pre-roll; jumper's cell scans and path
-      search), torch ops per refill from one profiled refill at the bucket
-      size, and device time by kernel from a short profiler window;
-4. the gym3 surface: ``ProcgenTorchEnv(..., device="cuda")`` on miner, a
+      search; reposition's retries; pair collisions, the entity-reflect
+      sweep and dodgeball's enemy sweep), torch ops per refill from one
+      profiled refill at the bucket size, and device time by kernel from a
+      short profiler window;
+5. the gym3 surface: ``ProcgenTorchEnv(..., device="cuda")`` on miner, a
    few act/observe rounds with its state on the card.
 
 The last three lines are the card's name and power limit, the kernels line,
@@ -60,12 +70,17 @@ import numpy as np
 import torch
 
 from procgen_torch import convert, cuda_build
+from procgen_torch import fmath as fm
 from procgen_torch.bench.profiling import profiled
 from procgen_torch.config import DistributionMode, EnvConfig
+from procgen_torch.engine.base import PAIRS_SPAN
+from procgen_torch.engine.entity_ops import REPOSITION_SPAN
 from procgen_torch.engine.game import step_env_no_reset
 from procgen_torch.engine.levelgen.roomgen import FIND_PATH_SPAN
+from procgen_torch.engine.physics import REFLECT_SPAN
 from procgen_torch.env import ProcgenTorchEnv
 from procgen_torch.games import make_game
+from procgen_torch.games.dodgeball import ENEMY_SWEEP_SPAN
 from procgen_torch.games.jumper import SCANS_SPAN
 from procgen_torch.games.leaper import PREROLL_SPAN
 from procgen_torch.games.miner import SWEEP_SPAN
@@ -89,13 +104,17 @@ WARMUP = 10
 # (game, mode, timed steps) of each main path: maze is the static-grid
 # class, miner and chaser the grid-dynamic one, coinrun the center-agent
 # view with entity push, leaper the static view with tiled and rotated
-# sprites, ninja and jumper center-agent views with a HUD.  Leaper runs
-# fewer steps: each of its resets pre-rolls 300 physics steps.
+# sprites, ninja and jumper center-agent views with a HUD, caveflyer (a
+# center-agent view) and dodgeball (a static one) with free rotation and
+# pair collisions.  The seven earlier paths run 50 timed steps (leaper 20:
+# each of its resets pre-rolls 300 physics steps) so that the script keeps
+# its time budget with nine paths.
 PATHS = (
-    ("maze", "hard", 100), ("miner", "hard", 100), ("chaser", "hard", 100),
-    ("coinrun", "hard", 100), ("leaper", "hard", 40), ("ninja", "hard", 100),
-    ("jumper", "hard", 100),
+    ("maze", "hard", 50), ("miner", "hard", 50), ("chaser", "hard", 50),
+    ("coinrun", "hard", 50), ("leaper", "hard", 20), ("ninja", "hard", 50),
+    ("jumper", "hard", 50), ("caveflyer", "hard", 100), ("dodgeball", "hard", 100),
 )
+TRIG_ANGLES = 1 << 24
 
 
 T0 = time.perf_counter()
@@ -160,7 +179,11 @@ def cuda_ms(fn, iters: int) -> float:
 
 # profiler spans read by the timing phase (procgen_torch/bench/profiling.py
 # sums host ns, count and torch ops per span, and device ns by kernel)
-SPANS = (REFILL_SPAN, FRAME_SPAN, SWEEP_SPAN, PREROLL_SPAN, SCANS_SPAN, FIND_PATH_SPAN)
+REFILL_SPANS = {"preroll": PREROLL_SPAN, "levelgen_scans": SCANS_SPAN,
+                "find_path": FIND_PATH_SPAN, "reposition": REPOSITION_SPAN}
+STEP_SPANS = {"pair_collisions": PAIRS_SPAN, "entity_reflect": REFLECT_SPAN,
+              "enemy_sweep": ENEMY_SWEEP_SPAN}
+SPANS = (REFILL_SPAN, FRAME_SPAN, SWEEP_SPAN, *REFILL_SPANS.values(), *STEP_SPANS.values())
 
 
 def phase_kernels_vs_plain(dev):
@@ -224,6 +247,33 @@ def phase_kernels_vs_plain(dev):
                 raise AssertionError(f"compositor kernel vs plain failed: {checks[-1]}")
     emit("kernel_vs_plain", kernel="composite_entities", shapes=[[512, 40], [256, 513], [512, E]],
          cases=checks)
+
+
+def phase_trig(dev):
+    """fmath.dsincos (caveflyer's double cos/sin, narrowed) on the card
+    against the CPU, bit for bit, on TRIG_ANGLES float32 angles in [-300,
+    300]; beside it, how often torch's own float64 cos/sin, narrowed,
+    differ between the two (the route this one replaces)."""
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.rand(TRIG_ANGLES, generator=gen, dtype=torch.float64) * 600 - 300).float()
+    cfg = types.SimpleNamespace(parity_mode=False)
+    xd = x.to(dev)
+    differ, torch_differ = 0, 0
+    for part, part_d in zip(x.split(1 << 22), xd.split(1 << 22)):
+        want = fm.dsincos(cfg, part)
+        got = fm.dsincos(cfg, part_d)
+        differ += sum(int((g.cpu().view(torch.int32) != w.view(torch.int32)).sum())
+                      for g, w in zip(got, want))
+        for fn in (torch.sin, torch.cos):
+            a = fn(part.double()).float().view(torch.int32)
+            b = fn(part_d.double()).float().cpu().view(torch.int32)
+            torch_differ += int((a != b).sum())
+    ms = cuda_ms(lambda: fm.dsincos(cfg, xd), 5)
+    if differ:
+        raise AssertionError(f"dsincos: {differ} card results differ from the CPU's")
+    emit("trig", function="fmath.dsincos", angles=TRIG_ANGLES, range=[-300, 300],
+         card_vs_cpu_differ=differ, torch_float64_trig_card_vs_cpu_differ=torch_differ,
+         card_ms_all_angles=ms)
 
 
 def phase_card_vs_cpu(dev, game, mode):
@@ -457,8 +507,7 @@ def phase_timing(run, dev):
     _, rp = profiled(lambda: run.init.cold(bucket_states), SPANS, cuda=False)
     if rp["count"][REFILL_SPAN] != 1:
         raise AssertionError(f"{run.game}: the profiled refill ran {rp['count'][REFILL_SPAN]} times")
-    for name, span in (("preroll", PREROLL_SPAN), ("levelgen_scans", SCANS_SPAN),
-                       ("find_path", FIND_PATH_SPAN)):
+    for name, span in REFILL_SPANS.items():
         if rp["count"][span]:
             extra[f"{name}_profiled_share_of_refill"] = rp["ns"][span] / rp["ns"][REFILL_SPAN]
             extra[f"torch_ops_per_{name}"] = rp["ops"][span] / rp["count"][span]
@@ -486,6 +535,10 @@ def phase_timing(run, dev):
         extra.update(sweep_profiled_share_of_step=spans[SWEEP_SPAN] / wall_ns,
                      sweep_profiled_share_of_game_step=spans[SWEEP_SPAN] / rest_ns,
                      torch_ops_per_sweep=w["ops"][SWEEP_SPAN] / window)
+    for name, span in STEP_SPANS.items():
+        if span in spans:  # inside the profiled steps, against their wall time
+            extra[f"{name}_profiled_share_of_step"] = spans[span] / wall_ns
+            extra[f"torch_ops_per_step_in_{name}"] = w["ops"][span] / window
     emit("timing", game=run.game, mode=run.mode, kernel_ms=kern_ms, plain_ms=plain_ms,
          bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, bytes_bound_ms=bytes_ms,
          ops_bound_ms=ops_ms, records=[N, E], kmax=read, drawn_records=drawn,
@@ -550,6 +603,7 @@ def main() -> int:
         for n, r in built.items()}, compositor_blocks_per_sm=compositor.blocks_per_sm())
 
     phase_kernels_vs_plain(dev)
+    phase_trig(dev)
     per_path = {}
     for game, mode, timed_steps in PATHS:
         phase_card_vs_cpu(dev, game, mode)

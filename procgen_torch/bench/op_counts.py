@@ -5,7 +5,10 @@
 Counts the torch ops (aten ops that no other op encloses; each launches one
 or more kernels on a card) of one refill at ``--envs`` envs (the refill
 bucket), of one game step and of one frame, with the profiler's host
-activity (procgen_torch/bench/profiling.py).  On the card these counts set
+activity (procgen_torch/bench/profiling.py), and those inside the named
+spans of the refill (leaper's pre-roll, jumper's scans, the path search,
+reposition's retries) and of the step (miner's sweep, pair collisions, the
+entity-reflect sweep, dodgeball's enemy sweep).  On the card these counts set
 the host time of a step; they do not depend on the device, except the
 frame's: on the CPU the compositor runs its plain version, one op group per
 drawn record.  Prints one JSON line.
@@ -20,9 +23,13 @@ import torch
 
 from procgen_torch.bench.profiling import profiled
 from procgen_torch.config import DistributionMode, EnvConfig
+from procgen_torch.engine.base import PAIRS_SPAN
+from procgen_torch.engine.entity_ops import REPOSITION_SPAN
 from procgen_torch.engine.game import step_env_no_reset
 from procgen_torch.engine.levelgen.roomgen import FIND_PATH_SPAN
+from procgen_torch.engine.physics import REFLECT_SPAN
 from procgen_torch.games import make_game
+from procgen_torch.games.dodgeball import ENEMY_SWEEP_SPAN
 from procgen_torch.games.jumper import SCANS_SPAN
 from procgen_torch.games.leaper import PREROLL_SPAN
 from procgen_torch.games.miner import SWEEP_SPAN
@@ -32,7 +39,12 @@ from procgen_torch.render.pack import RenderPack
 from procgen_torch.state import seeded_template
 
 STEP_SPAN, FRAME_SPAN = "op_counts.game_step", "op_counts.frame"
-SPANS = (REFILL_SPAN, PREROLL_SPAN, SCANS_SPAN, FIND_PATH_SPAN, SWEEP_SPAN, STEP_SPAN, FRAME_SPAN)
+# spans inside a refill and inside a game step, by the name of their count
+REFILL_SPANS = {"preroll": PREROLL_SPAN, "levelgen_scans": SCANS_SPAN,
+                "find_path": FIND_PATH_SPAN, "reposition": REPOSITION_SPAN}
+STEP_SPANS = {"sweep": SWEEP_SPAN, "pair_collisions": PAIRS_SPAN,
+              "entity_reflect": REFLECT_SPAN, "enemy_sweep": ENEMY_SWEEP_SPAN}
+SPANS = (REFILL_SPAN, STEP_SPAN, FRAME_SPAN, *REFILL_SPANS.values(), *STEP_SPANS.values())
 
 
 def main() -> None:
@@ -65,12 +77,13 @@ def main() -> None:
                torch_ops_per_refill=refill["ops"][REFILL_SPAN],
                torch_ops_per_game_step=step["ops"][STEP_SPAN],
                torch_ops_per_frame=step["ops"][FRAME_SPAN])
-    for name, span in (("preroll", PREROLL_SPAN), ("levelgen_scans", SCANS_SPAN),
-                       ("find_path", FIND_PATH_SPAN)):
+    for name, span in REFILL_SPANS.items():
         if refill["count"][span]:
             out[f"torch_ops_per_{name}"] = refill["ops"][span] / refill["count"][span]
-    if step["count"][SWEEP_SPAN]:
-        out["torch_ops_per_sweep"] = step["ops"][SWEEP_SPAN]
+            out[f"{name}_calls_per_refill"] = refill["count"][span]
+    for name, span in STEP_SPANS.items():
+        if step["count"][span]:  # summed over the span's calls in the step
+            out[f"torch_ops_per_step_in_{name}"] = step["ops"][span]
     print(json.dumps(out))
 
 

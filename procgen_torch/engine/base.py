@@ -23,6 +23,8 @@ from procgen_torch.state import (
     empty_entity_table,
 )
 
+PAIRS_SPAN = "procgen_torch.pair_collisions"
+
 MAXVTHETA = f32(15 * 3.141592653589793 / 180)  # bag.cpp:6 (float const)
 MIXRATEROT = f32(0.5)  # bag.cpp:7
 
@@ -266,6 +268,13 @@ class GameDef:
         mask = mask & ents.alive & (ents.type != O.PLAYER)
         return self.handle_agent_collision(cfg, state, mask)
 
+    def handle_collision_pairs(self, cfg, state: EnvState, pair_mask) -> EnvState:
+        """pair_mask: (N, L, L) bool over the first L slots (L bounds every
+        env's live count) -- [i, j]: slot i collides with slot j and
+        collides_with_entities, both alive and not marked for erasure
+        (bag.cpp:725-736).  Default: no-op."""
+        return state
+
     def handle_grid_collision(self, cfg, state, ent_idx, cell_type, cx, cy, valid):
         """One overlapped cell of entity ``ent_idx`` (an int, or (N,) per-env
         slots); ``cell_type``/``cx``/``cy``/``valid`` are (N,)."""
@@ -329,11 +338,6 @@ def base_game_reset(gd: GameDef, cfg, state: EnvState, rs):
 
 
 def base_game_step(gd: GameDef, cfg, state: EnvState) -> EnvState:
-    if gd.uses_pair_collisions:
-        raise NotImplementedError(
-            f"procgen_torch: {gd.name}: pair collisions (dodgeball) are not "
-            "ported yet"
-        )
     mt, sri = R.mt_randint(state.rng, 0, 1000000)
     action = state.action
     move = action % 9
@@ -379,6 +383,11 @@ def base_game_step(gd: GameDef, cfg, state: EnvState) -> EnvState:
     # collision dispatch (bag.cpp:719-741), phased as in the reference
     # package; the default grid handler is a no-op, so its probes are skipped
     state = gd.agent_collision_phase(cfg, state)
+    if gd.uses_pair_collisions:
+        with torch.profiler.record_function(PAIRS_SPAN):
+            ents = state.ents
+            L = max(int(ents.alive.sum(1).max()), 1)
+            state = gd.handle_collision_pairs(cfg, state, pair_collision_mask(ents, L))
     if type(gd).handle_grid_collision is not GameDef.handle_grid_collision:
         state = ph.check_grid_collisions(gd, cfg, state, eo.AGENT)
     if not gd.agent_only_smart and gd.smart_entities_grid_collide:
@@ -394,6 +403,38 @@ def base_game_step(gd: GameDef, cfg, state: EnvState) -> EnvState:
     return state.replace(ents=ents, done=state.done | agent_oob)
 
 
+def pair_collision_mask(ents, L: int) -> torch.Tensor:
+    """bag.cpp:725-736 over the first ``L`` slots: (N, L, L), [i, j] where
+    slot i collides with entities, i and j overlap (i's collision margin),
+    both are alive and neither is marked for erasure, i != j.  Exact when
+    ``L`` bounds every env's live count: live slots are a prefix of the
+    table (compact keeps survivors in front, appends go to slot count)."""
+    f = {n: getattr(ents, n)[:, :L] for n in (
+        "x", "y", "rx", "ry", "collision_margin", "collides_with_entities", "alive",
+        "will_erase")}
+    tx = f["rx"][:, :, None] + f["rx"][:, None, :] + f["collision_margin"][:, :, None]
+    ty = f["ry"][:, :, None] + f["ry"][:, None, :] + f["collision_margin"][:, :, None]
+    pair = (torch.abs(f["x"][:, :, None] - f["x"][:, None, :]) < tx) & (
+        torch.abs(f["y"][:, :, None] - f["y"][:, None, :]) < ty
+    )
+    ok = f["alive"] & ~f["will_erase"]
+    eye = torch.eye(L, dtype=torch.bool, device=ok.device)
+    return pair & (f["collides_with_entities"] & ok)[:, :, None] & ok[:, None, :] & ~eye
+
+
+def descending_slots(mask: torch.Tensor):
+    """The masked slots of each env (mask (N, K)) in descending order first
+    (a stable sort: the rest follow ascending), their count per env, and
+    the batch's largest count read on the host (one synchronization).
+    Loops of per-env slot dispatches, in the reference's reverse slot
+    order, run ``range(n_max)`` iterations gated by ``k < count``."""
+    K = mask.shape[1]
+    slot = torch.arange(K, device=mask.device)
+    order = torch.sort(torch.where(mask, K - 1 - slot, 2 * K), dim=1, stable=True).indices
+    count = mask.sum(1)
+    return order, count, int(count.max())
+
+
 def smart_grid_collisions(gd: GameDef, cfg, state: EnvState) -> EnvState:
     """Grid collisions of the other smart entities (bag.cpp:738-740), for
     games whose handler answers them (ninja's throwing stars).  Handlers
@@ -407,9 +448,7 @@ def smart_grid_collisions(gd: GameDef, cfg, state: EnvState) -> EnvState:
     M = min(gd.max_smart_entities or E, E)
     slot = torch.arange(E, device=ents.x.device)
     smart_alive = ents.alive & ents.smart_step & (slot != eo.AGENT)[None, :]
-    key = torch.where(smart_alive, E - 1 - slot, 2 * E)
-    order = torch.sort(key, dim=1, stable=True).indices
-    n_smart = smart_alive.sum(1)
-    for k in range(min(M, int(n_smart.max()))):
+    order, n_smart, n_max = descending_slots(smart_alive)
+    for k in range(min(M, n_max)):
         state = ph.check_grid_collisions(gd, cfg, state, order[:, k], active=k < n_smart)
     return state

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from procgen_torch import objects as O
+from procgen_torch import rng as R
 from procgen_torch.state import F32, I32, EntityTable, default_entity_fields
 
 AGENT = 0  # agent is always slot 0 (basic-abstract-game.cpp:788-792)
@@ -65,6 +67,19 @@ def write_slots_masked(ents: EntityTable, idxs, mask, **updates) -> EntityTable:
             arr[:, idxs] = torch.where(mask, val.to(arr.dtype), arr[:, idxs])
             new[name] = arr
     return ents.replace(**new)
+
+
+def at(arr: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Per-env slot read ``arr[n, i[n]]`` of an (N, E) field, (N,)."""
+    return torch.gather(arr, 1, i[:, None])[:, 0]
+
+
+def set_at(arr: torch.Tensor, i: torch.Tensor, val, mask) -> torch.Tensor:
+    """``arr`` with ``arr[n, i[n]] = val[n]`` where ``mask[n]``; ``val`` is
+    an (N,) tensor or a Python number."""
+    cur = at(arr, i)
+    val = val if isinstance(val, torch.Tensor) else torch.full_like(cur, val)
+    return arr.scatter(1, i[:, None], torch.where(mask, val, cur).to(arr.dtype)[:, None])
 
 
 def make_entity(x, y, vx, vy, rx, ry, type_) -> dict:
@@ -194,3 +209,91 @@ def compact(ents: EntityTable, main_width, main_height) -> EntityTable:
     n_alive = (~dead).to(I32).sum(1, keepdim=True)
     new["alive"] = slot[None, :] < n_alive
     return EntityTable(**new)
+
+
+REPOSITION_SPAN = "procgen_torch.reposition"
+# how often reposition's retry loop reads on the host whether any env is
+# still retrying (each read synchronizes the stream)
+REPOSITION_CHECK_EVERY = 4
+
+
+def _batch_f32(rs, v) -> torch.Tensor:
+    """``v`` (a number or an (N,) tensor) as a float32 (N,) tensor on the
+    device and batch of the draw source ``rs``."""
+    like = rs.cursor if isinstance(rs, R.MTBlock) else rs.pos
+    if isinstance(v, torch.Tensor):
+        return v.to(device=like.device, dtype=F32).expand(like.shape)
+    return torch.full(like.shape, v, dtype=F32, device=like.device)
+
+
+def rand_pos(rs, r, lo, hi, active=True):
+    """bag.cpp:1100-1108: a coordinate in [lo + r, hi - r].  Draws only
+    where the box is loose (hi - lo > 2r); a tight box gives its midpoint
+    without touching the stream (part of the RNG contract).  ``r``, ``lo``,
+    ``hi``: (N,) float32 tensors or numbers (float32 values, as the
+    reference's float parameters); returns (rs, (N,) float32)."""
+    r, lo, hi = (_batch_f32(rs, v) for v in (r, lo, hi))
+    span = hi - lo
+    tight = span <= 2 * r
+    draw = ~tight if active is True else ~tight & active
+    rs, u = R.rs_rand01(rs, active=draw)
+    # "(max - min - 2 * r) * rand01() + r + min", each op rounded in turn
+    loose = (span - 2 * r) * u + r + lo
+    return rs, torch.where(tight, (hi + lo) / 2, loose)
+
+
+def reposition(rs, state, rx, ry, type_, collision_margin, x, y, w, h,
+               check_collisions=True, active=True):
+    """bag.cpp:541-560: draw a position in the box (x, y, w, h) and redraw,
+    up to 100 times, while it overlaps the agent (for a non-player type) or,
+    with ``check_collisions``, any live slot that does not avoid
+    collisions.  ``active`` (bool (N,) or True) gates every draw.  The loop
+    stops once no env is still redrawing, read on the host every
+    ``REPOSITION_CHECK_EVERY`` tries (exact: an inactive env draws nothing).
+    Returns (rs, px, py)."""
+    ents = state.ents
+    x, y, w, h = (_batch_f32(rs, v) for v in (x, y, w, h))
+    act = torch.ones_like(ents.alive[:, 0]) if active is True else active
+
+    def try_place(rs, act):
+        rs, px = rand_pos(rs, rx, x, x + w, act)
+        rs, py = rand_pos(rs, ry, y, y + h, act)
+        return rs, px, py
+
+    with torch.profiler.record_function(REPOSITION_SPAN):
+        rs, px, py = try_place(rs, act)
+        for k in range(100):
+            # has_agent_collision (bag.cpp:1126-1131), then has_any_collision
+            bad = torch.zeros_like(act)
+            if type_ != O.PLAYER:
+                bad = entity_vs_all(ents, px, py, rx, ry, collision_margin)[:, AGENT]
+            if check_collisions:
+                bad = bad | has_any_collision_mask(ents, px, py, rx, ry).any(1)
+            act = act & bad
+            if k % REPOSITION_CHECK_EVERY == 0 and not bool(act.any()):
+                break
+            rs, nx, ny = try_place(rs, act)
+            px = torch.where(act, nx, px)
+            py = torch.where(act, ny, py)
+    return rs, px, py
+
+
+def spawn_entity_rxy(rs, state, rx, ry, type_, x, y, w, h, check_collisions=True,
+                     active=True):
+    """bag.cpp:511-519: reposition a fresh entity, then push_back.
+    Returns (rs, state, slot)."""
+    fields = make_entity(0.0, 0.0, 0.0, 0.0, rx, ry, type_)
+    rs, px, py = reposition(
+        rs, state, rx, ry, type_, fields["collision_margin"], x, y, w, h,
+        check_collisions, active=active,
+    )
+    fields["x"] = px
+    fields["y"] = py
+    ents, idx = append_entity(state.ents, fields, active)
+    return rs, state.replace(ents=ents), idx
+
+
+def add_entity_rxy(state, x, y, vx, vy, rx, ry, type_, active=True):
+    """bag.cpp:521-529: push_back an entity at (x, y)."""
+    ents, idx = append_entity(state.ents, make_entity(x, y, vx, vy, rx, ry, type_), active)
+    return state.replace(ents=ents), idx

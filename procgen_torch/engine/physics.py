@@ -5,8 +5,9 @@ sub_step, :593-656 basic_step_object, :1086-1098 step_entities).
 Batched over a leading env axis.  Movers interact with grid cells (ninja's
 throwing stars stop dead on a wall probe) and, in games that push
 (coinrun's crates), with the entity table through the vectorized push/block
-branch; the sequential reflect sweep and pure entity blocking arrive with
-the games that use them.
+branch, and (dodgeball's enemies off its lava walls) through the sequential
+entity-reflect sweep.  Pure entity blocking arrives with the game that
+uses it.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from procgen_torch import objects as O
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine.rand_util import first_true
 from procgen_torch.state import F32, I32, EnvState
+
+REFLECT_SPAN = "procgen_torch.physics.entity_reflect"
 
 POS_EPS = float(np.float32(-0.001))  # bag.cpp:10
 SUB_STEP_MARGIN = float(np.float32(0.98))  # bag.cpp:276
@@ -87,10 +90,10 @@ def fill_rect(grid, x, y, dx, dy, v):
 
 def check_physics_features(gd):
     """Raise for the sub-step features no ported game needs yet."""
-    if gd.uses_entity_reflect:
+    if gd.uses_entity_reflect and gd.uses_entity_push:
         raise NotImplementedError(
-            f"procgen_torch: {gd.name}: the sequential entity-reflect sweep "
-            "(dodgeball) is not ported yet"
+            f"procgen_torch: {gd.name}: the entity-reflect sweep with push is "
+            "not ported (no game of the reference package uses it)"
         )
     if gd.uses_entity_block and not gd.uses_entity_push:
         raise NotImplementedError(
@@ -166,12 +169,49 @@ def _entity_push(gd, cfg, state, idxs, obj, nx, ny, nvx, nvy, is_horizontal,
     return state, nx, ny, nvx, nvy, block2
 
 
-def sub_step(gd, cfg, state: EnvState, idxs, _vx, _vy, active, n_live=None):
+def _entity_reflect(gd, cfg, state, idxs, obj, nx, ny, nvx, nvy, _vx, _vy,
+                    is_horizontal, active, slots):
+    """The sequential entity sweep of sub_step without push (bag.cpp:335-369
+    as the reference package runs it): slots in descending order, each
+    reflection moving the mover before the next slot is tested, all movers
+    (N, M) at once against the table as it stood before the sub-step.
+    ``slots``: the slots that can block or reflect some mover in some env,
+    descending (the others change nothing).  No game with this sweep
+    observes entity blocks (``note_entity_blocks``).  Returns (nx, ny, nvx,
+    nvy, block2)."""
+    ents = state.ents
+    block2 = torch.zeros_like(active)
+    for b in slots:
+        valid = (ents.alive[:, b] & ~ents.will_erase[:, b])[:, None] & (idxs != b)
+        bx, by, brx, bry = (getattr(ents, f)[:, b:b + 1] for f in ("x", "y", "rx", "ry"))
+        hit = valid & (
+            (torch.abs(nx - bx) < obj["rx"] + brx + POS_EPS)
+            & (torch.abs(ny - by) < obj["ry"] + bry + POS_EPS)
+        )
+        tgt = {f: getattr(ents, f)[:, b:b + 1] for f in ("type", "image_theme", "y", "ry")}
+        blocked_m = hit & gd.is_blocked_ents_vals(cfg, state, obj["type"], tgt, is_horizontal)
+        refl = hit & ~blocked_m & gd.will_reflect(cfg, state, obj["type"], tgt["type"])
+        bounce_dx = torch.where(_vx > 0, -2 * (brx + obj["rx"] - (bx - nx)),
+                                2 * (brx + obj["rx"] + (bx - nx)))
+        bounce_dy = torch.where(_vy > 0, -2 * (bry + obj["ry"] - (by - ny)),
+                                2 * (bry + obj["ry"] + (by - ny)))
+        app = refl & active
+        nx = torch.where(app & is_horizontal, nx + bounce_dx, nx)
+        ny = torch.where(app & ~is_horizontal, ny + bounce_dy, ny)
+        nvx = torch.where(app & is_horizontal, -nvx, nvx)
+        nvy = torch.where(app & ~is_horizontal, -nvy, nvy)
+        block2 = block2 | blocked_m
+    return nx, ny, nvx, nvy, block2
+
+
+def sub_step(gd, cfg, state: EnvState, idxs, _vx, _vy, active, n_live=None,
+             reflect_slots=()):
     """One axis-separated sub-step (bag.cpp:270-372) for entity slots
     ``idxs`` (M ints, or per-env slots (N, M)), all at once.
     ``_vx``/``_vy``/``active``: (N, M).  ``n_live``: a bound on the live
     slots of every env (the push branch tests blockers below it; None = the
-    whole table).  Returns (state, blocked (N, M))."""
+    whole table).  ``reflect_slots``: the slots the entity-reflect sweep
+    tests, descending.  Returns (state, blocked (N, M))."""
     check_physics_features(gd)
     obj = eo.read_slots(
         state.ents, idxs, ("x", "y", "vx", "vy", "rx", "ry", "type", "will_erase")
@@ -241,6 +281,13 @@ def sub_step(gd, cfg, state: EnvState, idxs, _vx, _vy, active, n_live=None):
             state.ents.capacity if n_live is None else n_live,
         )
         block = block | block2
+    elif gd.uses_entity_reflect:
+        with torch.profiler.record_function(REFLECT_SPAN):
+            nx, ny, nvx, nvy, block2 = _entity_reflect(
+                gd, cfg, state, idxs, obj, nx, ny, nvx, nvy, _vx, _vy, is_horizontal,
+                active, reflect_slots,
+            )
+        block = block | block2
 
     ents = eo.write_slots_masked(
         state.ents, idxs, active, x=nx, y=ny, vx=nvx, vy=nvy
@@ -248,12 +295,13 @@ def sub_step(gd, cfg, state: EnvState, idxs, _vx, _vy, active, n_live=None):
     return state.replace(ents=ents), active & block
 
 
-def basic_step_object(gd, cfg, state: EnvState, idxs, active=None, n_live=None) -> EnvState:
+def basic_step_object(gd, cfg, state: EnvState, idxs, active=None, n_live=None,
+                      reflect_slots=()) -> EnvState:
     """bag.cpp:593-656 for entity slots ``idxs`` (M ints, or per-env slots
     (N, M)), stepped together.  The sub-step loop stops after the largest
     sub-step count of an active mover, read once per call: in every later
     iteration no mover acts, so nothing is written and no count changes.
-    ``n_live``: see ``sub_step``."""
+    ``n_live``, ``reflect_slots``: see ``sub_step``."""
     M = idxs.shape[1] if isinstance(idxs, torch.Tensor) else len(idxs)
     N = state.num_envs
     dev = state.done.device
@@ -299,13 +347,13 @@ def basic_step_object(gd, cfg, state: EnvState, idxs, active=None, n_live=None) 
         # first pass moves along x if step_x_first else y; second the other
         a1x = torch.where(step_x_first, vx, 0.0)
         a1y = torch.where(step_x_first, 0.0, vy)
-        state, b1 = sub_step(gd, cfg, state, idxs, a1x, a1y, act, n_live)
+        state, b1 = sub_step(gd, cfg, state, idxs, a1x, a1y, act, n_live, reflect_slots)
         # the reference evaluates "obj->vx * pct" at each sub_step call
         # (bag.cpp:634-638): re-read after the first axis
         cur2 = eo.read_slots(state.ents, idxs, ("vx", "vy"))
         a2x = torch.where(step_x_first, 0.0, cur2["vx"] * pct)
         a2y = torch.where(step_x_first, cur2["vy"] * pct, 0.0)
-        state, b2 = sub_step(gd, cfg, state, idxs, a2x, a2y, act, n_live)
+        state, b2 = sub_step(gd, cfg, state, idxs, a2x, a2y, act, n_live, reflect_slots)
         block_x = torch.where(step_x_first, b1, b2)
         block_y = torch.where(step_x_first, b2, b1)
         vx_pct = vx_pct + torch.where(act & ~block_x, 1.0, 0.0)
@@ -352,10 +400,17 @@ def step_entities(gd, cfg, state: EnvState) -> EnvState:
     observable effect (audited per game in the reference package's
     physics.step_entities).  The smart movers: chaser's enemies (grid
     blocking only), coinrun's walking enemies (crates, which are not smart,
-    and the grid) and ninja's throwing stars, which ``is_blocked`` tests
+    and the grid), ninja's throwing stars, which ``is_blocked`` tests
     against grid cell types only, so neither a star nor the agent blocks or
-    pushes another smart entity.  When the agent is the only smart entity it
-    takes the sub-step path alone (slot 0, stepped last)."""
+    pushes another smart entity, caveflyer's enemies (they reflect off the
+    grid only: no entity has a reflecting type) and dodgeball's enemies,
+    which reflect off its lava walls, non-smart entities that do not move
+    during the smart phase.  When the agent is the only smart entity it
+    takes the sub-step path alone (slot 0, stepped last).
+
+    The movers are cut to the batch's largest smart count, read once per
+    step with the push branch's live count and the reflect sweep's slots
+    (exact: movers past an env's smart count never act)."""
     ents = state.ents
     E = ents.capacity
     slot = torch.arange(E, device=ents.x.device)
@@ -368,24 +423,40 @@ def step_entities(gd, cfg, state: EnvState) -> EnvState:
 
     M = min(gd.max_smart_entities or E, E)
     state = state.replace(ents=entity_euler_step_all(ents, ents.alive & ~ents.smart_step))
-    smart_alive = state.ents.alive & state.ents.smart_step
+    ents = state.ents
+    smart_alive = ents.alive & ents.smart_step
     n_smart = smart_alive.to(I32).sum(1, keepdim=True)
-    n_live = None
-    if gd.uses_entity_push:
-        # the push branch compares every mover with every slot: bound the
-        # slots by the batch's largest live count and the movers by its
-        # largest smart count, read once per step.  Exact: live slots are a
-        # prefix of the table (compact keeps survivors in front, appends go
-        # to slot count), dead slots never block, movers past n_smart never
-        # act.
-        n_live, n_movers = torch.stack([state.ents.alive.sum(1).max(), n_smart.max()]).tolist()
-        M = min(M, max(n_movers, 1))
     # smart slots in descending order first; a stable sort keeps the rest
     # ascending, as the reference package's argsort does
     key = torch.where(smart_alive, E - 1 - slot, 2 * E)
     order = torch.sort(key, dim=1, stable=True).indices[:, :M]
     act = slot[None, :M] < n_smart
-    state = basic_step_object(gd, cfg, state, order, active=act, n_live=n_live)
+    reads = [n_smart.max().to(torch.int64)[None]]
+    if gd.uses_entity_push:
+        # the push branch compares every mover with every slot: bound the
+        # slots by the batch's largest live count.  Exact: live slots are a
+        # prefix of the table (compact keeps survivors in front, appends go
+        # to slot count) and dead slots never block.
+        reads.append(ents.alive.sum(1).max()[None])
+    if gd.uses_entity_reflect:
+        # the slots that can block or reflect an active mover in some env;
+        # the sweep skips the others, which change nothing
+        mtype = torch.gather(ents.type, 1, order)[..., None]
+        tgt = {f: getattr(ents, f)[:, None, :] for f in ("type", "image_theme", "y", "ry")}
+        horiz = torch.ones_like(act)[..., None]
+        can = gd.will_reflect(cfg, state, mtype, tgt["type"])
+        for h in (horiz, ~horiz):
+            can = can | gd.is_blocked_ents_vals(cfg, state, mtype, tgt, h)
+        ok = (ents.alive & ~ents.will_erase)[:, None, :] & (order[..., None] != slot)
+        reads.append((can & ok & act[..., None]).any(1).any(0).to(torch.int64))
+    vals = torch.cat(reads).tolist()
+    M = min(M, max(vals[0], 1))
+    n_live = vals[1] if gd.uses_entity_push else None
+    reflect_slots = ()
+    if gd.uses_entity_reflect:
+        reflect_slots = [b for b in range(E - 1, -1, -1) if vals[-E + b]]
+    state = basic_step_object(gd, cfg, state, order[:, :M], active=act[:, :M],
+                              n_live=n_live, reflect_slots=reflect_slots)
     return state.replace(ents=entity_euler_step_all(state.ents, smart_alive))
 
 

@@ -15,6 +15,8 @@ Never route these through ``addcmul``, ``lerp`` or ``torch.compile``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -95,16 +97,199 @@ def fadd32(cfg, a, b):
     return _t(a) + _t(b)
 
 
-def dcos_np(x) -> np.ndarray:
+_LIBM = None
+
+
+def libm():
+    """The host C library's libm through ctypes: the functions the reference
+    binary links (glibc's ``cos``/``sin`` of a double, ``atan2f``).  NumPy's
+    and torch's trig are other implementations and may differ in the last
+    bit (glibc's ``atan2f`` differs from a narrowed double ``atan2`` on
+    about 16% of inputs)."""
+    global _LIBM
+    if _LIBM is None:
+        import ctypes
+
+        lib = ctypes.CDLL("libm.so.6")
+        for name, arg in (("cos", ctypes.c_double), ("sin", ctypes.c_double),
+                          ("atan2f", ctypes.c_float)):
+            fn = getattr(lib, name)
+            fn.restype = arg
+            fn.argtypes = [arg] * (2 if name == "atan2f" else 1)
+        _LIBM = lib
+    return _LIBM
+
+
+def _libm_map(name, x) -> np.ndarray:
+    fn = getattr(libm(), name)
+    x = np.asarray(x, np.float32)
+    out = [fn(float(v)) for v in x.reshape(-1)]
+    return np.asarray(out, np.float64).reshape(x.shape)
+
+
+def dcos_libm(x) -> np.ndarray:
     """C++ ``cos(float)`` of the double overload, narrowed at a float store:
-    ``float(cos(double(x)))`` for float32 ``x``, on the host.  Callers with
-    a handful of angles (ninja's stars) tabulate it, so the card and the CPU
-    read the same bits (their float trig differs in the last bit)."""
-    return np.cos(np.asarray(x, np.float32).astype(np.float64)).astype(np.float32)
+    ``float(cos(double(x)))`` for float32 ``x``, by the host libm.  Callers
+    with a handful of angles (ninja's stars) tabulate it, so the card and
+    the CPU read the same bits."""
+    return _libm_map("cos", x).astype(np.float32)
 
 
-def dsin_np(x) -> np.ndarray:
-    return np.sin(np.asarray(x, np.float32).astype(np.float64)).astype(np.float32)
+def dsin_libm(x) -> np.ndarray:
+    return _libm_map("sin", x).astype(np.float32)
+
+
+def atan2f_libm(y, x) -> np.ndarray:
+    """glibc ``atan2f`` (the float overload) of float32 arrays."""
+    fn = libm().atan2f
+    y, x = np.broadcast_arrays(np.asarray(y, np.float32), np.asarray(x, np.float32))
+    out = [fn(float(a), float(b)) for a, b in zip(y.reshape(-1), x.reshape(-1))]
+    return np.asarray(out, np.float32).reshape(y.shape)
+
+
+# ---------------------------------------------------------------------------
+# face_rotation (entity.cpp:84-88) from a host table
+# ---------------------------------------------------------------------------
+
+
+def _face_key_parts(v):
+    """(sign bit, is zero) of each float32 of ``v`` as 0/1 ints: a signed
+    zero keeps its sign, which glibc's atan2f reads (atan2f(-0.0, -1) is
+    -pi, atan2f(+0.0, -1) is +pi)."""
+    return torch.signbit(v).to(torch.int64), (v == 0).to(torch.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _face_table(device: str, offset: float) -> torch.Tensor:
+    """``-atan2f(dy, dx) + offset`` in float32 for the 16 keys (sign and
+    zero-ness of dx, then of dy), nonzero components of magnitude 1."""
+    vals = np.zeros((16,), np.float32)
+    for key in range(16):
+        sx, zx, sy, zy = (key >> 3) & 1, (key >> 2) & 1, (key >> 1) & 1, key & 1
+        dx = np.float32((0.0 if zx else 1.0) * (-1.0 if sx else 1.0))
+        dy = np.float32((0.0 if zy else 1.0) * (-1.0 if sy else 1.0))
+        a = atan2f_libm(dy, dx)
+        vals[key] = -a + np.float32(offset)  # float32 negate, float32 add
+    return torch.as_tensor(vals).to(device)
+
+
+def face_rotation(cfg, dx: torch.Tensor, dy: torch.Tensor, offset: float = 0.0):
+    """Entity::face_direction (entity.cpp:84-88): ``rotation = -atan2(dy,
+    dx) + offset``, where ``atan2`` is glibc's ``atan2f`` (entity.cpp
+    includes <math.h>) and the chain is float32 in both modes.  Read from a
+    16-entry host table keyed on the sign bit and zero-ness of each
+    component, so the card and the CPU read the same bits.  Exact where one
+    component is zero (every enemy of caveflyer and dodgeball moves along
+    one axis: then only the signs matter) or ``|dx| == |dy|`` (dodgeball's
+    agent faces one of 8 directions of unit components); other inputs are
+    outside this table's domain.  The caller applies the "only when moving"
+    guard."""
+    table = _face_table(str(dx.device), f32(offset))
+    sx, zx = _face_key_parts(dx)
+    sy, zy = _face_key_parts(dy)
+    return table[sx * 8 + zx * 4 + sy * 2 + zy]
+
+
+# ---------------------------------------------------------------------------
+# cos/sin of a float angle through the double overload, on the device
+# ---------------------------------------------------------------------------
+
+# fdlibm's __ieee754_rem_pio2 (medium case), __kernel_sin and __kernel_cos
+_INVPIO2 = 6.36619772367581382433e-01
+_PIO2_1, _PIO2_1T = 1.57079632673412561417e+00, 6.07710050650619224932e-11
+_PIO2_2, _PIO2_2T = 6.07710050630396597660e-11, 2.02226624879595063154e-21
+_PIO2_3, _PIO2_3T = 2.02226624871116645580e-21, 8.47842766036889956997e-32
+_S = (-1.66666666666666324348e-01, 8.33333333332248946124e-03,
+      -1.98412698298579493134e-04, 2.75573137070700676789e-06,
+      -2.50507602534068634195e-08, 1.58969099521155010221e-10)
+_C = (4.16666666666666019037e-02, -1.38888888888741095749e-03,
+      2.48015872894767294178e-05, -2.75573143513906633035e-07,
+      2.08757232129817482790e-09, -1.13596475577881948265e-11)
+
+
+def _hi_exp(v: torch.Tensor) -> torch.Tensor:
+    """The biased exponent of a float64 (``(__HI(v) >> 20) & 0x7ff``)."""
+    return (v.view(torch.int64) >> 52) & 0x7FF
+
+
+def _rem_pio2(t: torch.Tensor):
+    """fdlibm's medium-case argument reduction of ``t`` = |x| >= 0 (float64,
+    t < 2^19 * pi/2): (n, y0, y1) with t = n * pi/2 + y0 + y1.  Every
+    iteration is computed and the one fdlibm would stop at is selected."""
+    fn = torch.floor(t * _INVPIO2 + 0.5)
+    r = t - fn * _PIO2_1
+    w = fn * _PIO2_1T
+    y0 = r - w
+    j = _hi_exp(t)
+    # 2nd iteration, taken where the first cancelled more than 16 bits
+    r2 = r - fn * _PIO2_2
+    w2 = fn * _PIO2_2T - ((r - r2) - fn * _PIO2_2)
+    y02 = r2 - w2
+    # 3rd iteration, where the second cancelled more than 49 bits
+    r3 = r2 - fn * _PIO2_3
+    w3 = fn * _PIO2_3T - ((r2 - r3) - fn * _PIO2_3)
+    y03 = r3 - w3
+    it2 = (j - _hi_exp(y0)) > 16
+    it3 = it2 & ((j - _hi_exp(y02)) > 49)
+    r = torch.where(it3, r3, torch.where(it2, r2, r))
+    w = torch.where(it3, w3, torch.where(it2, w2, w))
+    y0 = torch.where(it3, y03, torch.where(it2, y02, y0))
+    y1 = (r - y0) - w
+    return fn.to(torch.int64), y0, y1
+
+
+def _kernel_sin(x, y, iy: bool):
+    z = x * x
+    v = z * x
+    r = _S[1] + z * (_S[2] + z * (_S[3] + z * (_S[4] + z * _S[5])))
+    if not iy:
+        return x + v * (_S[0] + z * r)
+    return x - ((z * (0.5 * y - v * r) - y) - v * _S[0])
+
+
+def _kernel_cos(x, y):
+    ax = torch.abs(x)
+    z = x * x
+    r = z * (_C[0] + z * (_C[1] + z * (_C[2] + z * (_C[3] + z * (_C[4] + z * _C[5])))))
+    small = 1.0 - (0.5 * z - (z * r - x * y))
+    # |x| >= 0.3: qx = x/4 with its low word cleared, or 0.28125 past 0.78125
+    bits = ax.view(torch.int64)
+    qx = (((bits >> 32) - 0x00200000) << 32).view(torch.float64)
+    qx = torch.where((bits >> 32) > 0x3FE90000, 0.28125, qx)
+    hz = 0.5 * z - qx
+    big = (1.0 - qx) - (hz - (z * r - x * y))
+    return torch.where((bits >> 32) < 0x3FD33333, small, big)
+
+
+def sincos64(x: torch.Tensor):
+    """(sin, cos) of a float64 tensor by fdlibm's algorithm (|x| < 2^19 *
+    pi/2), written as separate eager torch ops: each op rounds as IEEE
+    requires on the CPU and on the card alike, so both give the same bits.
+    fdlibm is within one ulp of the true value, as glibc is, so narrowed to
+    float32 the two agree except within a double ulp of a float32 rounding
+    boundary (tests/test_torch_engine.py holds it against glibc)."""
+    t = torch.abs(x)
+    n, y0, y1 = _rem_pio2(t)
+    # |x| <~ pi/4 (fdlibm compares the high word): no reduction, iy = 0
+    tiny = (t.view(torch.int64) >> 32) <= 0x3FE921FB
+    y0 = torch.where(tiny, t, y0)
+    y1 = torch.where(tiny, 0.0, y1)
+    n = torch.where(tiny, 0, n)
+    ks = torch.where(tiny, _kernel_sin(y0, y1, False), _kernel_sin(y0, y1, True))
+    kc = _kernel_cos(y0, y1)
+    q = n & 3
+    sin_t = torch.where(q == 0, ks, torch.where(q == 1, kc, torch.where(q == 2, -ks, -kc)))
+    cos_t = torch.where(q == 0, kc, torch.where(q == 1, -ks, torch.where(q == 2, -kc, ks)))
+    # sin is odd, cos even (fdlibm reduces |x| and negates n, y0, y1)
+    return torch.where(torch.signbit(x), -sin_t, sin_t), cos_t
+
+
+def dsincos(cfg, x: torch.Tensor):
+    """(sin, cos) of C++ ``sin(float)``/``cos(float)``, which resolve to the
+    double overloads: float64 in parity mode (the caller narrows at the
+    store), narrowed to float32 on the fast path."""
+    s, c = sincos64(_t(x).to(F64))
+    return (s, c) if cfg.parity_mode else (s.to(F32), c.to(F32))
 
 
 def atan2_wide(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,12 @@
 """Game registry: name -> GameDef factory (reference game-registry.h).
 
-Ported so far: maze (static grid), miner and chaser (grid-dynamic), coinrun
-(center-agent platformer with entity push), leaper (static view, tiled and
-axis-rotated sprites), ninja and jumper (center-agent platformers with a
-HUD); the other games of ``procgen_tpu.games`` follow in later slices."""
+Ported so far, nine games: maze (static grid), miner and chaser
+(grid-dynamic), coinrun (center-agent platformer with entity push), leaper
+(static view, tiled and axis-rotated sprites), ninja and jumper
+(center-agent platformers with a HUD), caveflyer (a center-agent view) and
+dodgeball (a static view), with free rotation and pair collisions, whose
+enemies reflect off cave walls and off lava-wall entities; the other games
+of ``procgen_tpu.games`` follow in later slices."""
 
 from __future__ import annotations
 
@@ -32,8 +35,10 @@ def make_game(cfg):
 
 
 def _import_all():
+    import procgen_torch.games.caveflyer  # noqa: F401
     import procgen_torch.games.chaser  # noqa: F401
     import procgen_torch.games.coinrun  # noqa: F401
+    import procgen_torch.games.dodgeball  # noqa: F401
     import procgen_torch.games.jumper  # noqa: F401
     import procgen_torch.games.leaper  # noqa: F401
     import procgen_torch.games.maze  # noqa: F401

@@ -59,9 +59,10 @@ def _star_angles() -> np.ndarray:
 def _star_velocity_table(device: str) -> torch.Tensor:
     """(8, 2) star (vx, vy): ``bullet_vel * cos(theta)`` resolves to the
     double cos and narrows at the Entity constructor, tabulated on the host
-    once per device (the card's float trig differs from the CPU's)."""
+    by glibc once per device (the card's float trig differs from the
+    CPU's)."""
     theta = _star_angles()
-    table = np.stack([fm.dcos_np(theta), fm.dsin_np(theta)], 1)
+    table = np.stack([fm.dcos_libm(theta), fm.dsin_libm(theta)], 1)
     return torch.as_tensor(table).to(device)
 
 

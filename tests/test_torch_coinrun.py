@@ -167,14 +167,27 @@ def _port_reset(gd, cfg, pack, state, which):
     return tree_select(which, fresh, state)
 
 
-def stepped_against_reference(j_cfg, cfg, policy, steps, prepare=None):
+def flush_denormals(fields: dict, names) -> dict:
+    """``fields`` with the float32 denormals of ``names`` replaced by zeros
+    of their sign: XLA:CPU runs with flush-to-zero, the reference (and the
+    port) keep denormals.  A game whose state decays into them compares
+    those fields so (e.g. caveflyer's rotation speed, halved every step)."""
+    out = dict(fields)
+    for n in names:
+        v = fields[n]
+        out[n] = np.where(np.abs(v) < np.finfo(np.float32).tiny, np.copysign(np.float32(0), v), v)
+    return out
+
+
+def stepped_against_reference(j_cfg, cfg, policy, steps, prepare=None, ftz_fields=()):
     """Step a port batch and the JAX package's side by side from port-made
     levels carried into the JAX EnvState, seeded actions ``policy(rs)``.
     After each step every field and the frame must agree (the view_dim
-    rule of tests/test_torch_fast_path.py); then the port's state is
-    yielded.  Finished envs get a new level from the port, carried over
-    again; ``prepare(state, which)`` may edit the new levels of ``which``
-    first (both packages then step the edited level)."""
+    rule of tests/test_torch_fast_path.py; ``ftz_fields`` compared through
+    ``flush_denormals``); then the port's state is yielded.  Finished envs
+    get a new level from the port, carried over again; ``prepare(state,
+    which)`` may edit the new levels of ``which`` first (both packages then
+    step the edited level)."""
     j_gd, gd = j_make_game(j_cfg), make_game(cfg)
     j_pack, pack = JPack(j_gd, j_cfg), RenderPack(gd, cfg)
     carry = JaxCarrier(j_gd, j_cfg)
@@ -198,7 +211,8 @@ def stepped_against_reference(j_cfg, cfg, policy, steps, prepare=None):
         state = step_env_no_reset(gd, cfg, state, torch.as_tensor(acts))
         state = update_view_params(gd, cfg, finish_step(cfg, state))
         assert_fields_equal(
-            jax_fields(j_state), convert.state_to_numpy(state), f"at step {t}", centered=True
+            jax_fields(j_state), flush_denormals(convert.state_to_numpy(state), ftz_fields),
+            f"at step {t}", centered=True,
         )
         np.testing.assert_array_equal(
             np.asarray(j_frame), fast2.render_frames2(gd, cfg, state, pack).numpy(),

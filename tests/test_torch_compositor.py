@@ -190,7 +190,8 @@ def test_pixel_span_holds_every_drawn_pixel(axis):
     assert ((end - first) <= np.ceil(size) + 3)[finite].all()
 
 
-GAMES = ["maze", "miner", "chaser", "coinrun", "leaper", "ninja", "jumper"]
+GAMES = ["maze", "miner", "chaser", "coinrun", "leaper", "ninja", "jumper", "caveflyer",
+         "dodgeball"]
 
 
 @pytest.mark.parametrize("game", GAMES)

@@ -4,9 +4,9 @@
 Maze and miner, 4 envs, 32 act/observe rounds with random actions and a
 forced reset (action -1): rewards, firsts, frames and infos equal, and the
 whole state equal field for field (the inline auto-reset and the per-level
-static layer included).  Coinrun, leaper, ninja and jumper run through the
-surface on the port alone.  Then the master-seed dealing of the joint env and the
-surface's refusals.
+static layer included).  Coinrun, leaper, ninja, jumper, caveflyer and
+dodgeball run through the surface on the port alone.  Then the master-seed
+dealing of the joint env and the surface's refusals.
 """
 
 import numpy as np
@@ -57,9 +57,10 @@ def test_env_matches_reference(game, mode):
     assert firsts >= 1
 
 
-@pytest.mark.parametrize("game", ["coinrun", "leaper", "ninja", "jumper"])
+@pytest.mark.parametrize("game", ["coinrun", "leaper", "ninja", "jumper", "caveflyer", "dodgeball"])
 def test_env_runs_new_games(game):
-    """The gym3 surface on coinrun, leaper, ninja and jumper (their steps and
+    """The gym3 surface on coinrun, leaper, ninja, jumper, caveflyer and
+    dodgeball (their steps and
     resets are held against procgen_tpu in tests/test_torch_<game>.py):
     act/observe rounds with a forced reset give a new level and a first
     flag, frames on the view of the live state."""

@@ -29,6 +29,7 @@ from procgen_tpu.render.pack import RenderPack as JPack
 from procgen_tpu.state import init_state_template as j_template
 
 from procgen_torch import convert
+from procgen_torch import fmath as p_fmath
 from procgen_torch.config import DistributionMode, EnvConfig
 from procgen_torch.games import make_game
 from procgen_torch.parallel.fast import make_fast_fns
@@ -55,8 +56,11 @@ def pin_jax_roundings(monkeypatch):
     sub-step's x + vx * pct when pct is inexact; the random agent spawn,
     bag.cpp:781-782).  Parity mode routes them through a host callback that
     rounds as the reference does, which is what the port computes.  dcos
-    and dsin (the double cos/sin of a float, narrowed) go through a host
-    callback too: on the fast path they are XLA's float cos and sin."""
+    and dsin (the double cos/sin of a float, narrowed) go through glibc in
+    a host callback too: on the fast path they are XLA's float cos and sin.
+    So does face_rotation (glibc's atan2f, negated, plus a float offset): on
+    the fast path it is XLA's arctan2, and XLA folds the ``+ 0.0`` that
+    turns the reference's -0.0 into +0.0."""
 
     def fadd32(cfg, a, b):
         a, b = jnp.broadcast_arrays(jnp.asarray(a, jnp.float32), jnp.asarray(b, jnp.float32))
@@ -68,22 +72,28 @@ def pin_jax_roundings(monkeypatch):
         )
         return j_fmath._callback(j_fmath._np_fmuladd, r, r, scale, off)
 
-    def double_trig(fn):
+    def double_trig(host):
         # C++ cos(float) of the double overload, narrowed at the float store
         # (ninja's star velocity): XLA's float cos need not give those bits
-        def host(x):
-            return fn(np.asarray(x, np.float32).astype(np.float64)).astype(np.float32)
-
         def trig(cfg, x):
             x = jnp.asarray(x, jnp.float32)
             return j_fmath._callback(host, x, x)
 
         return trig
 
+    def face_rotation(cfg, dx, dy, offset=0.0):
+        dy, dx = jnp.broadcast_arrays(jnp.asarray(dy, jnp.float32), jnp.asarray(dx, jnp.float32))
+
+        def host(y, x):
+            return -p_fmath.atan2f_libm(y, x) + np.float32(offset)
+
+        return j_fmath._callback(host, dy, dy, dx)
+
     monkeypatch.setattr(j_fmath, "fadd32", fadd32)
     monkeypatch.setattr(j_fmath, "fmuladd32", fmuladd32)
-    monkeypatch.setattr(j_fmath, "dcos", double_trig(np.cos))
-    monkeypatch.setattr(j_fmath, "dsin", double_trig(np.sin))
+    monkeypatch.setattr(j_fmath, "dcos", double_trig(p_fmath.dcos_libm))
+    monkeypatch.setattr(j_fmath, "dsin", double_trig(p_fmath.dsin_libm))
+    monkeypatch.setattr(j_fmath, "face_rotation", face_rotation)
 
 
 # One known XLA:CPU site.  update_view_params computes view_dim = 64 /
@@ -204,10 +214,12 @@ import importlib, pkgutil, sys
 import procgen_torch.env, procgen_torch.games.miner, procgen_torch.games.chaser
 import procgen_torch.games.coinrun, procgen_torch.games.leaper
 import procgen_torch.games.ninja, procgen_torch.games.jumper
+import procgen_torch.games.caveflyer, procgen_torch.games.dodgeball
 import procgen_torch.engine.rand_util, procgen_torch.engine.levelgen.roomgen
 from procgen_torch.games import available_games
 assert available_games() == [
-    "chaser", "coinrun", "jumper", "leaper", "maze", "miner", "ninja"], available_games()
+    "caveflyer", "chaser", "coinrun", "dodgeball", "jumper", "leaper", "maze", "miner",
+    "ninja"], available_games()
 import procgen_torch
 for m in pkgutil.walk_packages(procgen_torch.__path__, "procgen_torch."):
     importlib.import_module(m.name)

@@ -98,3 +98,54 @@ def test_render_matches_reference(mode):
     got = fast2.render_frames2(gd, cfg, states, pack)
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
     assert (got.numpy() > 0).mean() > 0.9  # not a black frame
+
+
+@pytest.mark.parametrize("game", ["caveflyer", "dodgeball"])
+def test_free_rotation_matches_reference(game):
+    """The 16-bin free-rotation atlas, array for array, and the records each
+    entity draws with (``fast2.entity_records``: the bin round(rotation *
+    16 / 2 pi) mod 16, mirrored to (16 - a) % 16 when reflected) on
+    rotations up to +-300 rad (caveflyer's ship turns without a bound)."""
+    from test_torch_coinrun import JaxCarrier, _port_reset
+
+    kw = dict(env_name=game, num_envs=4, rand_seed=5, use_generated_assets=True)
+    jcfg = JConfig(distribution_mode=JMode.hard, **kw)
+    cfg = EnvConfig(distribution_mode=DistributionMode.hard, **kw)
+    jgd, gd = j_make_game(jcfg), make_game(cfg)
+    jpack, pack = JPack(jgd, jcfg), RenderPack(gd, cfg)
+    assert pack.rot_bins == 16
+    for k in sorted(k for k in vars(jpack) if not k.startswith("_")):
+        np.testing.assert_array_equal(getattr(jpack, k), getattr(pack, k), err_msg=f"RenderPack.{k}")
+
+    from procgen_torch.state import seeded_template
+
+    state = _port_reset(gd, cfg, pack, seeded_template(gd, cfg, 4, device="cpu"),
+                        torch.ones(4, dtype=torch.bool))
+    rs = np.random.RandomState(11)
+    E = state.ents.capacity
+    rot = rs.uniform(-300, 300, (4, E)).astype(np.float32)
+    rot[:, :8] = np.float32([0, np.pi, -np.pi, np.pi / 8, -np.pi / 8, 300, -300, 1e-3])
+    ents = state.ents.replace(
+        alive=torch.ones_like(state.ents.alive), rotation=torch.as_tensor(rot),
+        is_reflected=torch.as_tensor(rs.rand(4, E) < 0.5),
+        type=torch.where(state.ents.alive, state.ents.type, state.ents.type[:, 1:2]),
+        image_type=torch.where(state.ents.alive, state.ents.image_type, state.ents.image_type[:, 1:2]),
+    )
+    state = state.replace(ents=ents)
+    j_tables = j_fast2.get_tables(jgd, jcfg, jpack)
+    j_rec, j_kmax = jax.jit(lambda s: j_fast2.entity_records(jgd, jcfg, s, j_tables, False))(
+        JaxCarrier(jgd, jcfg)(state))
+    rec, kmax = fast2.entity_records(gd, cfg, state, fast2.get_tables(gd, cfg, pack, "cpu"))
+    want, got = np.asarray(j_rec), rec.numpy()
+    assert int(j_kmax) == int(kmax)
+    bins = got[..., 4] % 16  # the variant's rotation bin (slot * 16 + bin)
+    assert len(np.unique(bins[got[..., 7] > 0])) == 16
+    # XLA:CPU contracts the rotated box's |c| * w + |s| * h into an FMA
+    # (procgen_tpu/render/fast2.py:408-409); the port rounds each product.
+    # Off the axis bins the box (columns 0-3) is held at 2 ulp, every other
+    # value by value.
+    box = np.zeros(got.shape, bool)
+    box[..., :4] = (bins % 4 != 0)[..., None]
+    np.testing.assert_array_equal(np.where(box, 0, want), np.where(box, 0, got))
+    ulps = np.abs(want.view(np.int32).astype(np.int64) - got.view(np.int32).astype(np.int64))
+    assert ulps[box].max() <= 2, ulps[box].max()
