@@ -6,8 +6,9 @@
 Phases (each prints one JSON line; any failure exits non-zero):
 
 0. the card: ``nvidia-smi`` name and power limit, torch's device name;
-1. build every CUDA kernel from procgen_torch/csrc (one nvcc each, started
-   together) into procgen_torch/_build;
+1. build every library from procgen_torch/csrc into procgen_torch/_build,
+   one compiler process each, started together (the CUDA kernels with
+   nvcc, the PNG decoder's unfilter with g++);
 2. each kernel against its plain PyTorch version on synthetic inputs
    (compositor: N=512, E=40, every z_filter, binary and fractional alpha;
    E=513, coinrun's table, with kmax 60 and kmax = E; and edge records:
@@ -18,7 +19,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    on 2^24 float32 angles in [-300, 300] the card's bits against the CPU's
    (must be equal), and the count of angles where torch's own float64
    cos/sin, narrowed, differ between the two;
-4. for each of the nine main paths (maze hard: static grid; miner hard and
+   Then the same over a pack atlas: bigfish's, from a synthetic asset root
+   whose agent sprite has fractional alpha (1-254), at the records of a
+   few steps of 512 envs: bitwise equal;
+4. for each of the twelve main paths (maze hard: static grid; miner hard and
    chaser hard: grid-dynamic, two compositor passes per frame with the
    grid drawn between them; coinrun hard: center-agent view, entity push,
    513 records; leaper hard: static view, tiled and axis-rotated sprites, a
@@ -27,14 +31,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
    jumper's cave levelgen; caveflyer hard: center-agent view, free
    rotation, pair collisions, the cave room generator; dodgeball hard:
    static view, free rotation, pair collisions, the entity-reflect sweep,
-   tiled lava walls):
+   tiled lava walls; bigfish hard: static view, fish spawned on the step
+   stream with their sprites' aspect ratios, a sequential collision sweep;
+   climber hard: center-agent view up a tall world, wall themes, patrolling
+   enemies; heist hard: the maze with keys and locked doors, doors blocking
+   through the entity push, free rotation):
    a. the port on the card against the port on the CPU (whose plain
       versions the CPU tests hold against the JAX package): 8 envs, 40
-      steps with forced resets, every state field and frame bitwise equal;
-   b. the main path: 4096 envs, refill bucket 512, generated assets, seed
-      123: cold start, then 10 warm-up and 100 timed rendered steps with
-      random actions on caveflyer and dodgeball, 50 on the seven earlier
-      paths (leaper 20: its resets pre-roll 300 physics steps); the kernel's
+      steps with forced resets, every state field and frame
+      bitwise equal; also coinrun (center-agent) and maze (static) in the PNG
+      configuration;
+   b. the main path: 4096 envs, refill bucket 512, seed 123, generated
+      assets on the nine earlier paths and PNG assets from the asset root
+      on bigfish, climber and heist: cold start, then 10 warm-up and 100
+      timed rendered steps with random actions on bigfish, climber,
+      heist, caveflyer and dodgeball, 50 on the seven earlier paths
+      (leaper 20: its resets pre-roll 300 physics steps); the kernel's
       launches counted from 0 just before and read just after (launches ==
       frames, or 2 x frames for grid-dynamic games), frames not black;
    c. the final frames through the kernel and through the plain version,
@@ -46,12 +58,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
       kernel's ms per launch at the path's shapes beside its plain version
       and its bound, the step's split (game step, refill, frame; miner's
       gravity sweep; leaper's pre-roll; jumper's cell scans and path
-      search; reposition's retries; pair collisions, the entity-reflect
-      sweep and dodgeball's enemy sweep), torch ops per refill from one
+      search; reposition's retries; heist's maze with doors; pair
+      collisions, the entity-reflect sweep, dodgeball's enemy sweep and
+      bigfish's and heist's agent-collision sweeps), torch ops per refill
+      from one
       profiled refill at the bucket size, and device time by kernel from a
       short profiler window;
-5. the gym3 surface: ``ProcgenTorchEnv(..., device="cuda")`` on miner, a
-   few act/observe rounds with its state on the card.
+5. the gym3 surface in its default configuration (PNG assets):
+   ``ProcgenTorchEnv(..., device="cuda")`` on miner and
+   ``ProcgenTorchEnv(64, "bigfish")`` (the card by default), a few
+   act/observe rounds each with the state on the card.
+
+The asset root: ``PROCGEN_TORCH_ASSET_ROOT`` when it is set (the script
+prints which root it used), else a synthetic root
+(``procgen_torch.bench.synth_assets``) written into a temporary directory
+at the start; the fractional-alpha root of phase 2 goes there too, and the
+directory is removed at the end.
 
 The last three lines are the card's name and power limit, the kernels line,
 and ``{"ok": true, "device": {...}}``.  The script needs CUDA; without it, it
@@ -61,8 +83,11 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -71,11 +96,13 @@ import torch
 
 from procgen_torch import convert, cuda_build
 from procgen_torch import fmath as fm
+from procgen_torch.bench import synth_assets
 from procgen_torch.bench.profiling import profiled
 from procgen_torch.config import DistributionMode, EnvConfig
-from procgen_torch.engine.base import PAIRS_SPAN
+from procgen_torch.engine.base import AGENT_SWEEP_SPAN, PAIRS_SPAN
 from procgen_torch.engine.entity_ops import REPOSITION_SPAN
 from procgen_torch.engine.game import step_env_no_reset
+from procgen_torch.engine.levelgen.mazegen import DOORS_SPAN
 from procgen_torch.engine.levelgen.roomgen import FIND_PATH_SPAN
 from procgen_torch.engine.physics import REFLECT_SPAN
 from procgen_torch.env import ProcgenTorchEnv
@@ -85,7 +112,7 @@ from procgen_torch.games.jumper import SCANS_SPAN
 from procgen_torch.games.leaper import PREROLL_SPAN
 from procgen_torch.games.miner import SWEEP_SPAN
 from procgen_torch.parallel.fast import REFILL_SPAN, make_fast_fns
-from procgen_torch.render import compositor, fast2
+from procgen_torch.render import assets, compositor, fast2
 from procgen_torch.render.pack import RenderPack
 from procgen_torch.state import seeded_template
 
@@ -101,19 +128,27 @@ FRAME_SPAN = "chip_smoke.frame"
 N_ENVS = 4096
 BUCKET = 512
 WARMUP = 10
-# (game, mode, timed steps) of each main path: maze is the static-grid
-# class, miner and chaser the grid-dynamic one, coinrun the center-agent
-# view with entity push, leaper the static view with tiled and rotated
-# sprites, ninja and jumper center-agent views with a HUD, caveflyer (a
-# center-agent view) and dodgeball (a static one) with free rotation and
-# pair collisions.  The seven earlier paths run 50 timed steps (leaper 20:
-# each of its resets pre-rolls 300 physics steps) so that the script keeps
-# its time budget with nine paths.
+# (game, mode, timed steps, generated assets) of each main path: maze is
+# the static-grid class, miner and chaser the grid-dynamic one, coinrun the
+# center-agent view with entity push, leaper the static view with tiled and
+# rotated sprites, ninja and jumper center-agent views with a HUD,
+# caveflyer (a center-agent view) and dodgeball (a static one) with free
+# rotation and pair collisions; bigfish, climber and heist, which read
+# their sprites' aspect ratios from the PNG assets, run in the default
+# configuration, PNG assets.  The seven earliest paths run 50 timed steps
+# (leaper 20: each of its resets pre-rolls 300 physics steps), enough for
+# their env-steps/s to take in several refills; the other five run 100.
 PATHS = (
-    ("maze", "hard", 50), ("miner", "hard", 50), ("chaser", "hard", 50),
-    ("coinrun", "hard", 50), ("leaper", "hard", 20), ("ninja", "hard", 50),
-    ("jumper", "hard", 50), ("caveflyer", "hard", 100), ("dodgeball", "hard", 100),
+    ("maze", "hard", 50, True), ("miner", "hard", 50, True), ("chaser", "hard", 50, True),
+    ("coinrun", "hard", 50, True), ("leaper", "hard", 20, True), ("ninja", "hard", 50, True),
+    ("jumper", "hard", 50, True), ("caveflyer", "hard", 100, True),
+    ("dodgeball", "hard", 100, True), ("bigfish", "hard", 100, False),
+    ("climber", "hard", 100, False), ("heist", "hard", 100, False),
 )
+# earlier games also held card vs CPU in the PNG configuration
+PNG_CARD_VS_CPU = (("coinrun", "hard"), ("maze", "hard"))
+# the sprite drawn with fractional alpha in the pack-atlas kernel case
+FRACTIONAL_SPRITES = ("misc_assets/fishTile_072.png",)
 TRIG_ANGLES = 1 << 24
 
 
@@ -139,11 +174,30 @@ def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return bool(torch.equal(a, b))
 
 
-def game_cfg(game: str, mode: str, n: int) -> EnvConfig:
+def game_cfg(game: str, mode: str, n: int, generated: bool = True) -> EnvConfig:
     return EnvConfig(
         env_name=game, num_envs=n, distribution_mode=DistributionMode[mode],
-        rand_seed=123, use_generated_assets=True,
+        rand_seed=123, use_generated_assets=generated,
     )
+
+
+def asset_kind(generated: bool) -> str:
+    return "generated" if generated else "png"
+
+
+def phase_assets(tmp: str):
+    """The asset root: PROCGEN_TORCH_ASSET_ROOT if set, else a synthetic
+    root written under ``tmp``."""
+    t0 = time.perf_counter()
+    given = bool(os.environ.get(assets.ROOT_ENV))
+    if given:
+        root = assets.asset_root()
+    else:
+        root = synth_assets.write_root(os.path.join(tmp, "binary"), seed=0)
+        os.environ[assets.ROOT_ENV] = str(root)
+    emit("assets", root=str(root), source="environment" if given else "synthetic",
+         sprites=len(synth_assets.sprite_names()), backgrounds=len(synth_assets.background_names()),
+         seconds=time.perf_counter() - t0)
 
 
 def passes(gd) -> int:
@@ -180,9 +234,10 @@ def cuda_ms(fn, iters: int) -> float:
 # profiler spans read by the timing phase (procgen_torch/bench/profiling.py
 # sums host ns, count and torch ops per span, and device ns by kernel)
 REFILL_SPANS = {"preroll": PREROLL_SPAN, "levelgen_scans": SCANS_SPAN,
-                "find_path": FIND_PATH_SPAN, "reposition": REPOSITION_SPAN}
+                "find_path": FIND_PATH_SPAN, "reposition": REPOSITION_SPAN,
+                "maze_doors": DOORS_SPAN}
 STEP_SPANS = {"pair_collisions": PAIRS_SPAN, "entity_reflect": REFLECT_SPAN,
-              "enemy_sweep": ENEMY_SWEEP_SPAN}
+              "enemy_sweep": ENEMY_SWEEP_SPAN, "agent_sweep": AGENT_SWEEP_SPAN}
 SPANS = (REFILL_SPAN, FRAME_SPAN, SWEEP_SPAN, *REFILL_SPANS.values(), *STEP_SPANS.values())
 
 
@@ -249,6 +304,47 @@ def phase_kernels_vs_plain(dev):
          cases=checks)
 
 
+def phase_kernels_vs_plain_fractional(dev, tmp):
+    """The compositor over a pack atlas with fractional alpha: bigfish's,
+    from a synthetic root whose agent sprite has alpha 1-254, at the records
+    of 512 envs after a few steps (through the kernel and the plain
+    version, bitwise)."""
+    saved = os.environ[assets.ROOT_ENV]
+    root = synth_assets.write_root(os.path.join(tmp, "fractional"), seed=0,
+                                   fractional=FRACTIONAL_SPRITES)
+    os.environ[assets.ROOT_ENV] = str(root)
+    try:
+        n = 512
+        cfg = game_cfg("bigfish", "hard", n, generated=False)
+        gd = make_game(cfg)
+        pack = RenderPack(gd, cfg)
+        init, step = make_fast_fns(gd, cfg, pack, refill_bucket=n)
+        fs = init.cold(seeded_template(gd, cfg, n, device=dev))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        for _ in range(5):
+            fs = step(fs, torch.randint(0, 15, (n,), generator=gen, device=dev, dtype=torch.int32))
+        tables = fast2.get_tables(gd, cfg, pack, dev)
+        records, kmax = fast2.entity_records(gd, cfg, fs.state, tables)
+        records = fast2._pad_records(records).contiguous()
+        canvas = fs.state.static_layer.to(torch.float32)
+        k = compositor.composite_entities(tables, records, kmax, canvas)
+        p = compositor.composite_entities_ref(tables, records, kmax, canvas)
+        torch.cuda.synchronize()
+        alpha = tables.var_mips[..., 3]
+        frac = int(((alpha > 0) & (alpha < 255)).sum())
+        eq = bitwise_equal(k, p)
+        emit("kernel_vs_plain_fractional", kernel="composite_entities", game="bigfish",
+             envs=n, records=list(records.shape), kmax=int(kmax), fractional_texels=frac,
+             bitwise_equal=eq, drawn_share=float((k != canvas).float().mean()),
+             max_abs_err=float((k - p).abs().max()))
+        if not eq or frac == 0:
+            raise AssertionError("compositor kernel vs plain over fractional alpha failed")
+    finally:
+        os.environ[assets.ROOT_ENV] = saved
+        assets.clear_caches()
+
+
 def phase_trig(dev):
     """fmath.dsincos (caveflyer's double cos/sin, narrowed) on the card
     against the CPU, bit for bit, on TRIG_ANGLES float32 angles in [-300,
@@ -276,11 +372,12 @@ def phase_trig(dev):
          card_ms_all_angles=ms)
 
 
-def phase_card_vs_cpu(dev, game, mode):
+def phase_card_vs_cpu(dev, game, mode, generated=True):
     """The port on the card against the port on the CPU, small input, with
-    forced resets (action -1) so that levels are swapped in."""
+    forced resets (action -1) so that levels are swapped in (leaper's CPU
+    half pre-rolls 300 physics steps in every reset)."""
     n, steps = 8, 40
-    cfg = game_cfg(game, mode, n)
+    cfg = game_cfg(game, mode, n, generated)
     gd = make_game(cfg)
     pack = RenderPack(gd, cfg)
     runs = {}
@@ -314,13 +411,14 @@ def phase_card_vs_cpu(dev, game, mode):
                 raise AssertionError(f"{game}: card state {k} differs from CPU at step {t}")
         dones += int(s_cpu[t]["state.done"].sum())
         rewards += int((s_cpu[t]["state.reward"] != 0).sum())
-    emit("card_vs_cpu", game=game, mode=mode, envs=n, steps=steps, episodes_ended=dones,
+    emit("card_vs_cpu", game=game, mode=mode, assets=asset_kind(generated), envs=n,
+         steps=steps, episodes_ended=dones,
          rewarded_steps=rewards, fields=len(s_cpu[0]), bitwise_equal=True)
 
 
-def phase_main_path(dev, game, mode, timed_steps):
+def phase_main_path(dev, game, mode, timed_steps, generated=True):
     steps = WARMUP + timed_steps
-    cfg = game_cfg(game, mode, N_ENVS)
+    cfg = game_cfg(game, mode, N_ENVS, generated)
     gd = make_game(cfg)
     t0 = time.perf_counter()
     pack = RenderPack(gd, cfg)
@@ -373,7 +471,8 @@ def phase_main_path(dev, game, mode, timed_steps):
     if not torch.isfinite(fs.state.ents.x).all() or not torch.isfinite(fs.state.reward).all():
         raise AssertionError(f"{game}: non-finite state")
     sps = N_ENVS * timed_steps / loop_s
-    emit("main_path", game=game, mode=mode, num_envs=N_ENVS, steps=steps,
+    emit("main_path", game=game, mode=mode, assets=asset_kind(generated), num_envs=N_ENVS,
+         steps=steps,
          refill_bucket=BUCKET, pack_build_s=pack_s, cold_start_s=cold_s,
          timed_steps=timed_steps, env_steps_per_s=sps, launches=launches,
          launches_per_frame=passes(gd), frames=frames_rendered,
@@ -564,26 +663,29 @@ def phase_timing(run, dev):
 
 
 def phase_env(dev):
-    """The gym3 surface on the card: a few act/observe rounds on miner."""
-    env = ProcgenTorchEnv(64, "miner", rand_seed=7, distribution_mode="hard",
-                          use_generated_assets=True, device=dev)
-    leaves = [env.state.grid, env.state.ents.x, env.state.rng.key, env.state.static_layer,
-              env.state.extra["diamonds_remaining"]]
-    if any(t.device.type != "cuda" for t in leaves):
-        raise AssertionError("ProcgenTorchEnv state is not on the card")
-    rs = np.random.RandomState(1)
-    firsts = 0
-    for _ in range(8):
-        env.act(rs.randint(0, 15, size=64))
-        rew, ob, first = env.observe()
-        firsts += int(first.sum())
-    if ob["rgb"].shape != (64, 64, 64, 3) or not np.isfinite(rew).all():
-        raise AssertionError("ProcgenTorchEnv observe returned bad shapes or values")
-    if env._obs.device.type != "cuda" or env.state.done.device.type != "cuda":
-        raise AssertionError("ProcgenTorchEnv frames or state left the card")
-    emit("env", game="miner", num=64, rounds=8, firsts=firsts,
-         nonzero_pixel_share=float((ob["rgb"] > 0).mean()), state_device=str(env.state.grid.device),
-         infos=len(env.get_info()))
+    """The gym3 surface on the card, in the default configuration (PNG
+    assets): a few act/observe rounds on miner (``device`` given) and on
+    bigfish (``device`` left at its default, the card)."""
+    for game, extra, kw in (("miner", "diamonds_remaining", {"device": dev}),
+                            ("bigfish", "fish_eaten", {})):
+        env = ProcgenTorchEnv(64, game, rand_seed=7, distribution_mode="hard", **kw)
+        leaves = [env.state.grid, env.state.ents.x, env.state.rng.key, env.state.static_layer,
+                  env.state.extra[extra]]
+        if any(t.device.type != "cuda" for t in leaves):
+            raise AssertionError(f"{game}: ProcgenTorchEnv state is not on the card")
+        rs = np.random.RandomState(1)
+        firsts = 0
+        for _ in range(8):
+            env.act(rs.randint(0, 15, size=64))
+            rew, ob, first = env.observe()
+            firsts += int(first.sum())
+        if ob["rgb"].shape != (64, 64, 64, 3) or not np.isfinite(rew).all():
+            raise AssertionError(f"{game}: ProcgenTorchEnv observe returned bad shapes or values")
+        if env._obs.device.type != "cuda" or env.state.done.device.type != "cuda":
+            raise AssertionError(f"{game}: ProcgenTorchEnv frames or state left the card")
+        emit("env", game=game, assets="png", num=64, rounds=8, firsts=firsts,
+             nonzero_pixel_share=float((ob["rgb"] > 0).mean()),
+             state_device=str(env.state.grid.device), infos=len(env.get_info()))
 
 
 def main() -> int:
@@ -598,21 +700,29 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     built = cuda_build.build_all()
-    emit("build", kernels={n: {"seconds": r["seconds"], "ptxas": [
+    emit("build", libraries={n: {"seconds": r["seconds"], "ptxas": [
         ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]}
         for n, r in built.items()}, compositor_blocks_per_sm=compositor.blocks_per_sm())
 
-    phase_kernels_vs_plain(dev)
-    phase_trig(dev)
-    per_path = {}
-    for game, mode, timed_steps in PATHS:
-        phase_card_vs_cpu(dev, game, mode)
-        run = phase_main_path(dev, game, mode, timed_steps)
-        phase_final_frames(run, dev)
-        per_path[f"{game}-{mode}"] = phase_timing(run, dev)
-        del run
-        torch.cuda.empty_cache()
-    phase_env(dev)
+    tmp = tempfile.mkdtemp(prefix="procgen_assets_")  # synthetic roots
+    try:
+        phase_assets(tmp)
+        phase_kernels_vs_plain(dev)
+        phase_kernels_vs_plain_fractional(dev, tmp)
+        phase_trig(dev)
+        per_path = {}
+        for game, mode, timed_steps, generated in PATHS:
+            phase_card_vs_cpu(dev, game, mode, generated)
+            run = phase_main_path(dev, game, mode, timed_steps, generated)
+            phase_final_frames(run, dev)
+            per_path[f"{game}-{mode}"] = dict(phase_timing(run, dev), assets=asset_kind(generated))
+            del run
+            torch.cuda.empty_cache()
+        for game, mode in PNG_CARD_VS_CPU:
+            phase_card_vs_cpu(dev, game, mode, generated=False)
+        phase_env(dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     first = per_path[f"{PATHS[0][0]}-{PATHS[0][1]}"]
     print(card, flush=True)

@@ -1,14 +1,19 @@
 """Torch ops per refill, per game step and per frame of one game.
 
     python3 -m procgen_torch.bench.op_counts jumper hard [--envs 8] [--device cpu]
+        [--generated-assets]
 
 Counts the torch ops (aten ops that no other op encloses; each launches one
 or more kernels on a card) of one refill at ``--envs`` envs (the refill
 bucket), of one game step and of one frame, with the profiler's host
 activity (procgen_torch/bench/profiling.py), and those inside the named
 spans of the refill (leaper's pre-roll, jumper's scans, the path search,
-reposition's retries) and of the step (miner's sweep, pair collisions, the
-entity-reflect sweep, dodgeball's enemy sweep).  On the card these counts set
+reposition's retries, heist's maze with doors) and of the step (miner's
+sweep, pair collisions, the entity-reflect sweep, dodgeball's enemy sweep,
+bigfish's and heist's agent-collision sweeps).  The game runs in its default
+configuration, PNG assets, from ``PROCGEN_TORCH_ASSET_ROOT`` or else from a
+synthetic root written into a temporary directory; ``--generated-assets``
+runs the configuration the earlier slices measured.  On the card these counts set
 the host time of a step; they do not depend on the device, except the
 frame's: on the CPU the compositor runs its plain version, one op group per
 drawn record.  Prints one JSON line.
@@ -18,14 +23,18 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
 
 import torch
 
+from procgen_torch.bench import synth_assets
 from procgen_torch.bench.profiling import profiled
 from procgen_torch.config import DistributionMode, EnvConfig
-from procgen_torch.engine.base import PAIRS_SPAN
+from procgen_torch.engine.base import AGENT_SWEEP_SPAN, PAIRS_SPAN
 from procgen_torch.engine.entity_ops import REPOSITION_SPAN
 from procgen_torch.engine.game import step_env_no_reset
+from procgen_torch.engine.levelgen.mazegen import DOORS_SPAN
 from procgen_torch.engine.levelgen.roomgen import FIND_PATH_SPAN
 from procgen_torch.engine.physics import REFLECT_SPAN
 from procgen_torch.games import make_game
@@ -34,16 +43,18 @@ from procgen_torch.games.jumper import SCANS_SPAN
 from procgen_torch.games.leaper import PREROLL_SPAN
 from procgen_torch.games.miner import SWEEP_SPAN
 from procgen_torch.parallel.fast import REFILL_SPAN, make_fast_fns
-from procgen_torch.render import fast2
+from procgen_torch.render import assets, fast2
 from procgen_torch.render.pack import RenderPack
 from procgen_torch.state import seeded_template
 
 STEP_SPAN, FRAME_SPAN = "op_counts.game_step", "op_counts.frame"
 # spans inside a refill and inside a game step, by the name of their count
 REFILL_SPANS = {"preroll": PREROLL_SPAN, "levelgen_scans": SCANS_SPAN,
-                "find_path": FIND_PATH_SPAN, "reposition": REPOSITION_SPAN}
+                "find_path": FIND_PATH_SPAN, "reposition": REPOSITION_SPAN,
+                "maze_doors": DOORS_SPAN}
 STEP_SPANS = {"sweep": SWEEP_SPAN, "pair_collisions": PAIRS_SPAN,
-              "entity_reflect": REFLECT_SPAN, "enemy_sweep": ENEMY_SWEEP_SPAN}
+              "entity_reflect": REFLECT_SPAN, "enemy_sweep": ENEMY_SWEEP_SPAN,
+              "agent_sweep": AGENT_SWEEP_SPAN}
 SPANS = (REFILL_SPAN, STEP_SPAN, FRAME_SPAN, *REFILL_SPANS.values(), *STEP_SPANS.values())
 
 
@@ -53,10 +64,18 @@ def main() -> None:
     ap.add_argument("mode")
     ap.add_argument("--envs", type=int, default=8)
     ap.add_argument("--device", default="cpu")
+    ap.add_argument("--generated-assets", action="store_true")
     args = ap.parse_args()
+    with tempfile.TemporaryDirectory() as tmp:
+        if not args.generated_assets and not os.environ.get(assets.ROOT_ENV):
+            os.environ[assets.ROOT_ENV] = str(synth_assets.write_root(tmp))
+        count(args)
+
+
+def count(args) -> None:
     cfg = EnvConfig(env_name=args.game, num_envs=args.envs,
                     distribution_mode=DistributionMode[args.mode], rand_seed=123,
-                    use_generated_assets=True)
+                    use_generated_assets=args.generated_assets)
     gd = make_game(cfg)
     pack = RenderPack(gd, cfg)
     init, _ = make_fast_fns(gd, cfg, pack, refill_bucket=args.envs)
@@ -74,6 +93,7 @@ def main() -> None:
 
     _, step = profiled(step_and_frame, SPANS, cuda=False)
     out = dict(game=args.game, mode=args.mode, envs=args.envs, device=args.device,
+               assets="generated" if args.generated_assets else "png",
                torch_ops_per_refill=refill["ops"][REFILL_SPAN],
                torch_ops_per_game_step=step["ops"][STEP_SPAN],
                torch_ops_per_frame=step["ops"][FRAME_SPAN])

@@ -16,6 +16,7 @@ from procgen_torch import rng as R
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine import physics as ph
 from procgen_torch.fmath import dmul, f32, fadd32, fmuladd32
+from procgen_torch.render.assets import BACKGROUND_GROUPS
 from procgen_torch.state import (
     F32,
     EnvState,
@@ -24,21 +25,11 @@ from procgen_torch.state import (
 )
 
 PAIRS_SPAN = "procgen_torch.pair_collisions"
+# the sequential agent-collision sweeps of bigfish and heist
+AGENT_SWEEP_SPAN = "procgen_torch.agent_collision_sweep"
 
 MAXVTHETA = f32(15 * 3.141592653589793 / 180)  # bag.cpp:6 (float const)
 MIXRATEROT = f32(0.5)  # bag.cpp:7
-
-# Background image counts per group (render/assets.py BACKGROUND_GROUPS of
-# the reference package); the PNGs themselves are not needed for levelgen.
-BACKGROUND_GROUP_SIZES = {
-    "space_backgrounds": 13,
-    "platform_backgrounds": 62,
-    "topdown_backgrounds": 9,
-    "topdown_simple_backgrounds": 1,
-    "water_backgrounds": 7,
-    "water_surface_backgrounds": 4,
-}
-
 
 class GameDef:
     """Base per-game definition with BasicAbstractGame defaults
@@ -100,7 +91,7 @@ class GameDef:
 
     @property
     def num_backgrounds(self) -> int:
-        return BACKGROUND_GROUP_SIZES[self.background_group]
+        return len(BACKGROUND_GROUPS[self.background_group])
 
     def asset_map(self, cfg) -> dict:
         """type -> theme-ordered sprite paths (asset_for_type)."""

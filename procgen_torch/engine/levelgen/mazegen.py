@@ -13,7 +13,8 @@ axis B.
 
 Loop trip counts are fixed (W_MAX iterations, inactive tail masked) and
 draws are masked, so each env consumes exactly the reference's stream.
-The door variant (mazegen.cpp:211-289) is not ported yet.
+The door variant (mazegen.cpp:211-289, ``generate_maze_with_doors``) runs
+its breadth-first searches as loops of batched mask dilations.
 """
 
 from __future__ import annotations
@@ -26,10 +27,14 @@ import torch
 
 from procgen_torch import objects as O
 from procgen_torch import rng as R
-from procgen_torch.engine.rand_util import choose_nth_masked
+from procgen_torch.engine.rand_util import choose_n_erase, choose_nth_masked, first_true
 from procgen_torch.state import I32
 
 MAZE_OFFSET = 1  # mazegen.h
+DOORS_SPAN = "procgen_torch.mazegen.doors"
+# how many rounds a search runs between host reads of whether any env is
+# still searching (each read synchronizes the stream)
+_SYNC_EVERY = 4
 
 
 @dataclasses.dataclass
@@ -218,6 +223,126 @@ def generate_maze_no_dead_ends(rs: R.MTBlock, maze_dim, max_dim: int):
             sel = choose_nth_masked(wall_mask, n)
             widx = (i + offs)[sel][:, None]
             flat.scatter_(1, widx, torch.where(do[:, None], O.SPACE, torch.gather(flat, 1, widx)))
+    return rs, flat.reshape(B, AD, AD)
+
+
+def _door_adjacent(grid):
+    """(B, AD * AD): cells with a DOOR_OBJ 4-neighbour."""
+    B = grid.shape[0]
+    return torch.stack([v == O.DOOR_OBJ for v in _neighbor_vals(grid)]).any(0).reshape(B, -1)
+
+
+def _grow(vis, space, AD: int):
+    """The cells one 4-step from ``vis`` (B, AD * AD) that are ``space`` and
+    not yet visited."""
+    B = vis.shape[0]
+    return _dilate(vis.reshape(B, AD, AD)).reshape(B, -1) & space & ~vis
+
+
+def generate_maze_with_doors(rs, num_doors, maze_dim, max_dim: int, max_doors: int = 3):
+    """mazegen.cpp:211-289: a perfect maze, then doors on forks and a key
+    (or, last, the exit) behind each, found in the reference's order.
+    ``num_doors`` (B,) <= max_doors, ``maze_dim`` (B,) odd.  Returns (rs,
+    grid) with grid (B, max_dim + 2, max_dim + 2) int32 [y, x] holding
+    WALL_OBJ / SPACE / AGENT_OBJ / EXIT_OBJ / DOOR_OBJ + k / KEY_OBJ + k.
+
+    The reference's ``std::set`` breadth-first search (expand_to_type)
+    visits each wave in ascending cell order, so the door it meets first is
+    next to the smallest cell of the first wave that touches one; each wave
+    is a batched mask dilation.  The searches run until no env is still
+    searching, read on the host every few waves (an env that has stopped
+    changes nothing)."""
+    with torch.profiler.record_function(DOORS_SPAN):
+        return _generate_maze_with_doors(rs, num_doors, maze_dim, max_dim, max_doors)
+
+
+def _generate_maze_with_doors(rs, num_doors, maze_dim, max_dim: int, max_doors: int):
+    res = generate_maze(rs, maze_dim, max_dim)
+    rs = res.rng
+    B = res.grid.shape[0]
+    AD = max_dim + 2
+    dev = res.grid.device
+    b = torch.arange(B, device=dev)
+    grid = res.grid
+
+    # forks: space cells with > 2 space neighbours (mazegen.cpp:215-227)
+    nsp = sum((v == O.SPACE).to(I32) for v in _neighbor_vals(grid))
+    forks = (grid == O.SPACE) & (nsp > 2)
+    # chosen = choose_n(forks, num_doors) (mazegen.cpp:229-236)
+    rs, picks, ndoors = choose_n_erase(rs, forks.reshape(B, -1), max_doors, num_doors)
+    flat = grid.reshape(B, -1).clone()
+    for s in range(max_doors):
+        p = picks[:, s].to(torch.int64)
+        flat[b, p] = torch.where(s < ndoors, O.DOOR_OBJ, flat[b, p])
+
+    # agent cell: choose_one(space), redrawn while next to a door
+    # (mazegen.cpp:238-253; the reference package bounds it at 64 draws)
+    door_adj = _door_adjacent(flat.reshape(B, AD, AD))
+    space = flat == O.SPACE
+    n_space = space.to(I32).sum(1)
+    rs, m = R.rs_randn(rs, n_space)
+    cell = choose_nth_masked(space, m)
+    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    for k in range(64):
+        active = active & torch.gather(door_adj, 1, cell[:, None])[:, 0]
+        if k % _SYNC_EVERY == 0 and not bool(active.any()):
+            break
+        rs, m = R.rs_randn(rs, n_space, active=active)
+        cell = torch.where(active, choose_nth_masked(space, m), cell)
+    flat[b, cell] = O.AGENT_OBJ
+    visited = torch.zeros((B, AD * AD), dtype=torch.bool, device=dev)
+    visited[b, cell] = True
+
+    offs = _neighbor_offsets(AD, str(dev))
+    for round_ in range(max_doors + 1):
+        round_active = round_ <= ndoors
+        search_active = round_ < ndoors
+        door_adj = _door_adjacent(flat.reshape(B, AD, AD))
+        space = flat == O.SPACE
+
+        # expand_to_type(s0, s1, DOOR_OBJ) (mazegen.cpp:69-98): waves until
+        # one touches a door
+        vis, wave = visited.clone(), visited.clone()
+        found = torch.zeros((B,), dtype=torch.bool, device=dev)
+        while True:
+            for _ in range(_SYNC_EVERY):
+                on = search_active & ~found & wave.any(1)
+                hit = on & (wave & door_adj).any(1)
+                new = _grow(vis, space, AD)
+                grow = (on & ~hit)[:, None]
+                vis = torch.where(grow, vis | new, vis)
+                wave = torch.where(grow, new, wave)
+                found = found | hit
+            if not bool((search_active & ~found & wave.any(1)).any()):
+                break
+        found_cell = first_true(wave & door_adj)
+        # the first DOOR_OBJ neighbour in push order left, up, down, right
+        nbr = found_cell[:, None] + offs[None, :]
+        is_door = torch.gather(flat, 1, nbr.clamp(0, AD * AD - 1)) == O.DOOR_OBJ
+        fd = torch.gather(nbr, 1, torch.where(is_door.any(1), first_true(is_door), 3)[:, None])[:, 0]
+        fd = fd.clamp(0, AD * AD - 1)
+        rename = search_active & found
+        flat[b, fd] = torch.where(rename, O.DOOR_OBJ + round_ + 1, flat[b, fd])
+        space = flat == O.SPACE
+
+        # expand_to_type(s0, s1, -999): the whole region a renamed door
+        # closes off
+        grew = torch.ones((B,), dtype=torch.bool, device=dev)
+        while True:
+            for _ in range(_SYNC_EVERY):
+                on = round_active & grew
+                new = _grow(vis, space, AD) & on[:, None]
+                vis = vis | new
+                grew = on & new.any(1)
+            if not bool(grew.any()):
+                break
+        s1 = vis & ~visited
+        rs, n = R.rs_randn(rs, s1.to(I32).sum(1).clamp(min=1), active=round_active)
+        key_cell = choose_nth_masked(s1, n)
+        val = torch.where(round_ == ndoors, O.EXIT_OBJ, O.KEY_OBJ + round_ + 1).to(I32)
+        flat[b, key_cell] = torch.where(round_active, val, flat[b, key_cell])
+        visited = torch.where(round_active[:, None], vis, visited)
+        visited[b, fd] = visited[b, fd] | rename
     return rs, flat.reshape(B, AD, AD)
 
 

@@ -118,10 +118,9 @@ def _corner_probes(gd, cfg, state, obj, nx, ny, is_horizontal):
 def _entity_push(gd, cfg, state, idxs, obj, nx, ny, nvx, nvy, is_horizontal,
                  active, n_live):
     """The vectorized push/block branch (bag.cpp:240-268, 335-369 as the
-    reference package runs it): every mover (per-env slots ``idxs`` (N, M):
-    push games step their movers on the smart-entity path) against the first
-    ``n_live`` slots at once (slots past the live count of every env are
-    dead and never block).  The lowest-index blocker gives the clamp; the
+    reference package runs it): every mover (per-env slots ``idxs`` (N, M))
+    against the first ``n_live`` slots at once (slots past the live count of
+    every env are dead and never block).  The lowest-index blocker gives the clamp; the
     pushed position re-probes the grid.  Returns (state, nx, ny, nvx, nvy,
     block2)."""
     ents = state.ents
@@ -417,7 +416,11 @@ def step_entities(gd, cfg, state: EnvState) -> EnvState:
     if gd.agent_only_smart:
         others = ents.alive & (slot != eo.AGENT)[None, :]
         state = state.replace(ents=entity_euler_step_all(ents, others))
-        state = basic_step_object(gd, cfg, state, [eo.AGENT])
+        agent = [eo.AGENT]
+        if gd.uses_entity_push:  # the push branch takes per-env slots (N, M)
+            agent = torch.full((state.num_envs, 1), eo.AGENT, dtype=torch.int64,
+                               device=slot.device)
+        state = basic_step_object(gd, cfg, state, agent)
         agent_mask = (slot == eo.AGENT)[None, :] & state.ents.alive
         return state.replace(ents=entity_euler_step_all(state.ents, agent_mask))
 

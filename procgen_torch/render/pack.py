@@ -5,9 +5,9 @@ The reference resolves (type, theme) -> QImage through asset_for_type and a
 lazy cache (bag.cpp:79-123).  Here each game declares its asset map once and
 every sprite is painted into a fixed-slot atlas with dense lookup tables.
 
-This slice builds packs from generated assets (``use_generated_assets``,
-optionally monochrome).  The Procgen PNG assets are not in the repository,
-so the PNG branch raises until the synthetic asset root (ROADMAP A7) lands.
+Sprites come from the PNG asset root (``render/assets.py``, the default)
+or from the generated-asset painter (``use_generated_assets``); either may
+be replaced by monochrome tiles (``use_monochrome_assets``).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from procgen_torch import objects as O
+from procgen_torch.render import assets
 
 GRID_TYPE_LUT_SIZE = 1104  # covers all grid object ids incl. chaser's 1002
 
@@ -55,18 +56,8 @@ class RenderPack:
     The renderer keeps device copies (render/fast2.get_tables)."""
 
     def __init__(self, gd, cfg):
-        if not cfg.use_generated_assets:
-            raise ValueError(
-                "procgen_torch.render.pack: PNG assets are not in the "
-                "repository; build packs with use_generated_assets=True "
-                "until the synthetic asset root (ROADMAP A7) is ported"
-            )
-        from procgen_torch.render.assetgen import (
-            generated_background,
-            generated_sprite,
-        )
-
         amap = gd.asset_map(cfg)
+        names: list[str] = []
         types_of_slot: list[int] = []
         themes_of_slot: list[int] = []
         slot_lut = np.full((O.MAX_ASSETS, O.MAX_IMAGE_THEMES), -1, np.int32)
@@ -74,19 +65,32 @@ class RenderPack:
         for type_, theme_names in amap.items():
             assert 0 <= type_ < O.MAX_ASSETS, type_
             num_themes[type_] = len(theme_names)
-            for theme in range(len(theme_names)):
-                slot_lut[type_, theme] = len(types_of_slot)
+            for theme, name in enumerate(theme_names):
+                # restrict_themes masks non-preserved types to theme 0 at
+                # asset-lookup time (mask_theme_if_necessary, bag.cpp:450-453,
+                # applied in initialize_asset_if_necessary, bag.cpp:86):
+                # every theme slot packs theme 0's image
+                if cfg.restrict_themes and not gd.should_preserve_type_themes(type_):
+                    name = theme_names[0]
+                slot_lut[type_, theme] = len(names)
+                names.append(name)
                 types_of_slot.append(type_)
                 themes_of_slot.append(theme)
 
-        # AssetGen procedural sprites (bag.cpp:93-110): every type paints one
-        # 64x64 texture from fixed_asset_seed + type; all themes map to it.
         fas = cfg.effective_fixed_asset_seed
-        by_type = {
-            t: generated_sprite(fas, t, gd.use_block_asset(t))
-            for t in sorted(set(types_of_slot))
-        }
-        imgs = [by_type[t] for t in types_of_slot]
+        if cfg.use_generated_assets:
+            # AssetGen procedural sprites (bag.cpp:93-110): every type paints
+            # one 64x64 texture from fixed_asset_seed + type; all themes map
+            # to it
+            from procgen_torch.render.assetgen import generated_sprite
+
+            by_type = {
+                t: generated_sprite(fas, t, gd.use_block_asset(t))
+                for t in sorted(set(types_of_slot))
+            }
+            imgs = [by_type[t] for t in types_of_slot]
+        else:
+            imgs = [assets.decode_png(n) for n in names]
         if cfg.use_monochrome_assets:
             # color_for_type hash fills replace every sprite draw
             # (bag.cpp:884-918, 455-481)
@@ -111,16 +115,22 @@ class RenderPack:
         self.slot_lut = slot_lut
         self.num_themes = num_themes
 
-        bgs = [
-            generated_background(fas + _BG_POOL_SALT + i)
-            for i in range(PROCGEN_BG_POOL)
-        ]
+        if cfg.use_generated_assets:
+            from procgen_torch.render.assetgen import generated_background
+
+            bgs = [
+                generated_background(fas + _BG_POOL_SALT + i)
+                for i in range(PROCGEN_BG_POOL)
+            ]
+        else:
+            bgs = [assets.decode_png(n) for n in assets.BACKGROUND_GROUPS[gd.background_group]]
         BH = max(b.shape[0] for b in bgs)
         BW = max(b.shape[1] for b in bgs)
         bg_atlas = np.zeros((len(bgs), BH, BW, 3), np.uint8)
         bg_dims = np.ones((len(bgs), 2), np.int32)
         for k, b in enumerate(bgs):
             h, w = b.shape[:2]
+            # backgrounds load as Format_RGB32: alpha dropped (resources.cpp)
             bg_atlas[k, :h, :w] = b[..., :3]
             bg_dims[k] = (w, h)
         self.bg_atlas = bg_atlas

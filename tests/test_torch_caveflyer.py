@@ -17,6 +17,9 @@ and its own inline path.
   fire; bullet hits on targets, obstacles, enemies and the goal (the pair
   collisions), bullets exploding on walls, targets destroyed and enemies
   reflecting off the cave walls are counted, and each must occur;
+* the step in easy and memory modes, 120 steps, every field and frame
+  bitwise (``pin_jax_render`` of tests/test_torch_fast_path.py pins the
+  FMAs of the renderer's rects at easy mode's unit of 6.4);
 * the port's fast path against its inline path, forced resets at t = 40,
   41 and 90.
 
@@ -58,7 +61,7 @@ from procgen_torch.games import caveflyer as CF
 from procgen_torch.games import make_game
 from procgen_torch.state import init_state_template
 from test_torch_coinrun import check_fast_path_matches_inline, stepped_against_reference
-from test_torch_fast_path import pin_jax_roundings
+from test_torch_fast_path import pin_jax_render, pin_jax_roundings
 
 torch.set_num_threads(1)
 
@@ -293,6 +296,29 @@ def test_caveflyer_step_matches_reference(monkeypatch):
               "targets_shot", "reflections"):
         assert counts[k] > 0, counts
     assert counts["levels"] >= 2 * N, counts
+
+
+@pytest.mark.parametrize("mode", ["easy", "memory"])
+def test_caveflyer_step_matches_reference_other_modes(monkeypatch, mode):
+    """Easy (a 30-cell world seen at visibility 10) and memory (60 cells,
+    no widened path) modes, 120 steps, as the hard run: every field and
+    frame bitwise.  At visibility 10 the view's unit is 6.4, where XLA:CPU
+    contracts the sprite and background rects' mul+adds into FMAs; the JAX
+    side is pinned there too (``pin_jax_render``)."""
+    pin_jax_roundings(monkeypatch)
+    pin_jax_render(monkeypatch)
+    pin_caveflyer_chains(monkeypatch)
+    events = Events(monkeypatch)
+    counts = dict(deaths=0, explosions=0, bullets=0)
+    for state in stepped_against_reference(*_cfgs(mode), _policy, 120, prepare=_stage,
+                                           ftz_fields=("ents.vrot",)):
+        ents = state.ents
+        counts["deaths"] += int((state.done & ~state.level_complete).sum())
+        counts["bullets"] += int((ents.alive & (ents.type == CF.PLAYER_BULLET)).sum())
+        counts["explosions"] += int((ents.alive & (ents.type == O.EXPLOSION)).sum())
+    counts.update(events.counts)
+    for k in ("bullets", "explosions", "bullet_hits"):
+        assert counts[k] > 0, counts
 
 
 def test_caveflyer_fast_path_matches_inline():

@@ -17,6 +17,8 @@ and its own inline path.
   entity-reflect sweep), balls absorbed by enemies, enemies killed (dust
   clouds), balls erased by lava walls, enemy balls thrown, doors opened and
   deaths are counted, and each must occur;
+* the step in memory mode (a center-agent view), 120 steps, every field and
+  frame bitwise (with ``pin_jax_render`` as well);
 * the port's fast path against its inline path, forced resets at t = 40,
   41 and 90, with moves only (see the test).
 
@@ -44,7 +46,7 @@ from procgen_torch.games import make_game
 from procgen_torch.state import init_state_template
 from test_torch_caveflyer import build_oracle, run_oracle
 from test_torch_coinrun import check_fast_path_matches_inline, stepped_against_reference
-from test_torch_fast_path import pin_jax_roundings
+from test_torch_fast_path import pin_jax_render, pin_jax_roundings
 
 torch.set_num_threads(1)
 
@@ -205,6 +207,19 @@ def test_dodgeball_step_matches_reference(monkeypatch, jax_x64_off):
               "balls_absorbed", "enemies_killed", "balls_on_lava"):
         assert counts[k] > 0, counts
     assert counts["levels"] >= 2 * N, counts
+
+
+def test_dodgeball_memory_step_matches_reference(monkeypatch, jax_x64_off):
+    """Memory mode (a larger arena in a center-agent view, and fewer
+    enemies), 120 steps, as the hard run: every field and frame bitwise."""
+    pin_jax_roundings(monkeypatch)
+    pin_jax_render(monkeypatch)
+    counts = dict(levels=N, deaths=0, enemy_balls=0)
+    for state in stepped_against_reference(*_cfgs("memory"), _policy, 120, prepare=_stage):
+        counts["deaths"] += int((state.done & ~state.level_complete).sum())
+        counts["enemy_balls"] += int((state.ents.alive & (state.ents.type == DB.ENEMY_BALL)).sum())
+        counts["levels"] += int(state.done.sum())
+    assert counts["enemy_balls"] > 0 and counts["levels"] > N, counts
 
 
 def _moving_policy(rs):

@@ -18,6 +18,7 @@ from procgen_tpu.env import ProcgenTPUEnv
 from procgen_torch import convert
 from procgen_torch import rng as R
 from procgen_torch.env import ProcgenJointEnv, ProcgenTorchEnv, make_procgen_env
+from procgen_torch.render import assets
 from test_torch_fast_path import assert_fields_equal, jax_fields
 
 torch.set_num_threads(1)
@@ -107,15 +108,17 @@ def test_joint_env_master_seed_dealing():
     joint.act(np.zeros(4, np.int32))
 
 
-def test_env_refusals():
+def test_env_refusals(monkeypatch):
     env = ProcgenTorchEnv(2, "maze", rand_seed=1, use_generated_assets=True, device="cpu")
     for call in (env.get_state, lambda: env.set_state([]), lambda: env.callmethod("get_state")):
         with pytest.raises(NotImplementedError, match="A9"):
             call()
     with pytest.raises(NotImplementedError, match="A11"):
         ProcgenTorchEnv(2, "maze", use_generated_assets=True, render_mode="rgb_array", device="cpu")
-    with pytest.raises(ValueError, match="A7"):
-        ProcgenTorchEnv(2, "maze", device="cpu")  # the PNG assets are absent
+    # PNG assets (the default) need an asset root; there is none here
+    monkeypatch.delenv(assets.ROOT_ENV, raising=False)
+    with pytest.raises(FileNotFoundError, match=assets.ROOT_ENV):
+        ProcgenTorchEnv(2, "maze", device="cpu")
     assert env.keys_to_act([("LEFT", "UP"), ("Q",), ("X",)])[0].tolist() == [2]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

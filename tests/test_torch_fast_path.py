@@ -96,6 +96,72 @@ def pin_jax_roundings(monkeypatch):
     monkeypatch.setattr(j_fmath, "face_rotation", face_rotation)
 
 
+
+def _f32_add(a, b):
+    """``a + b`` of two float32 operands in one IEEE rounding on the host:
+    an XLA:CPU fusion cannot contract a product feeding it into an FMA."""
+    a, b = jnp.broadcast_arrays(jnp.asarray(a, jnp.float32), jnp.asarray(b, jnp.float32))
+    return j_fmath._callback(j_fmath._np_fadd, a, a, b)
+
+
+# The mul+add chains of procgen_tpu/render/fast2.py that XLA:CPU contracts
+# into FMAs: where the view's unit is not a power of two (a center-agent
+# view at visibility 20 or 10: climber's hard mode, caveflyer's easy mode),
+# the entity rect's corner (get_object_rect) and the background rect's top
+# and left edges; and the box of a rotated sprite off the axis bins
+# (heist's diagonal moves).  Each (source line, pinned line) pair is exact
+# text.
+_RENDER_SITES = {
+    "entity_records": (
+        ("(ents.x - ents.rx) * unit - x_off,",
+         "_f32_add((ents.x - ents.rx) * unit, -x_off),"),
+        ("(view_dim - (ents.y + ents.ry)) * unit + y_off,",
+         "_f32_add((view_dim - (ents.y + ents.ry)) * unit, y_off),"),
+        ("bbw = jnp.abs(c) * r_w + jnp.abs(s) * r_h",
+         "bbw = _f32_add(jnp.abs(c) * r_w, jnp.abs(s) * r_h)"),
+        ("bbh = jnp.abs(s) * r_w + jnp.abs(c) * r_h",
+         "bbh = _f32_add(jnp.abs(s) * r_w, jnp.abs(c) * r_h)"),
+    ),
+    "bg_pass": (
+        ("m_y0 = (view_dim - mh) * unit + y_off",
+         "m_y0 = _f32_add((view_dim - mh) * unit, y_off)"),
+        ("bx0 = m_x0 + m_w * (-offset_x)",
+         "bx0 = _f32_add(m_x0, m_w * (-offset_x))"),
+    ),
+}
+
+
+def _f32_div(cfg, a, b):
+    a, b = jnp.broadcast_arrays(jnp.asarray(a, jnp.float32), jnp.asarray(b, jnp.float32))
+    return j_fmath._callback(lambda x, y: np.asarray(x, np.float32) / np.asarray(y, np.float32),
+                             a, a, b)
+
+
+def pin_jax_render(monkeypatch):
+    """Route the mul+add chains of ``_RENDER_SITES`` in the JAX package's
+    renderer through one host rounding each, as the reference (and the
+    port) round them: the functions are recompiled from their source with
+    those lines rewritten, for one test.  A site whose text is not found
+    fails the test.  ``fdiv`` becomes one IEEE division on the host too:
+    XLA folds update_view_params' ``64 / (64 / visibility)`` into
+    ``visibility`` (the view_dim rule above), and at visibility 13 (heist's
+    hard mode) the offsets that view_dim gives move a sprite's edge across
+    a pixel centre."""
+    import inspect
+    import textwrap
+
+    monkeypatch.setattr(j_fmath, "fdiv", _f32_div)
+
+    for name, sites in _RENDER_SITES.items():
+        src = textwrap.dedent(inspect.getsource(getattr(j_fast2, name)))
+        for old, new in sites:
+            assert src.count(old) == 1, (name, old)
+            src = src.replace(old, new)
+        scope = dict(vars(j_fast2), _f32_add=_f32_add)
+        exec(compile(src, f"<pinned {name}>", "exec"), scope)
+        monkeypatch.setattr(j_fast2, name, scope[name])
+
+
 # One known XLA:CPU site.  update_view_params computes view_dim = 64 /
 # (64 / visibility) (procgen_tpu/render/renderer.py:56-60); in fast mode
 # XLA's algebraic simplifier folds a / (b / c) into a * c / b, which gives
@@ -215,11 +281,13 @@ import procgen_torch.env, procgen_torch.games.miner, procgen_torch.games.chaser
 import procgen_torch.games.coinrun, procgen_torch.games.leaper
 import procgen_torch.games.ninja, procgen_torch.games.jumper
 import procgen_torch.games.caveflyer, procgen_torch.games.dodgeball
+import procgen_torch.games.bigfish, procgen_torch.games.climber, procgen_torch.games.heist
 import procgen_torch.engine.rand_util, procgen_torch.engine.levelgen.roomgen
+import procgen_torch.render.assets, procgen_torch.bench.synth_assets
 from procgen_torch.games import available_games
 assert available_games() == [
-    "caveflyer", "chaser", "coinrun", "dodgeball", "jumper", "leaper", "maze", "miner",
-    "ninja"], available_games()
+    "bigfish", "caveflyer", "chaser", "climber", "coinrun", "dodgeball", "heist", "jumper",
+    "leaper", "maze", "miner", "ninja"], available_games()
 import procgen_torch
 for m in pkgutil.walk_packages(procgen_torch.__path__, "procgen_torch."):
     importlib.import_module(m.name)
