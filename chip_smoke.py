@@ -18,11 +18,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
 3. the double cos/sin of a float angle (caveflyer's ship), ``fmath.dsincos``:
    on 2^24 float32 angles in [-300, 300] the card's bits against the CPU's
    (must be equal), and the count of angles where torch's own float64
-   cos/sin, narrowed, differ between the two;
+   cos/sin, narrowed, differ between the two; glibc's ``atan2f`` as float32
+   ops (``fmath.atan2f``, starpilot's aimed bullets) and the correctly
+   rounded square root (``fmath.sqrt32``) on 2^22 inputs, card against CPU
+   (must be equal);
    Then the same over a pack atlas: bigfish's, from a synthetic asset root
    whose agent sprite has fractional alpha (1-254), at the records of a
    few steps of 512 envs: bitwise equal;
-4. for each of the twelve main paths (maze hard: static grid; miner hard and
+4. for each of the sixteen main paths (maze hard: static grid; miner hard and
    chaser hard: grid-dynamic, two compositor passes per frame with the
    grid drawn between them; coinrun hard: center-agent view, entity push,
    513 records; leaper hard: static view, tiled and axis-rotated sprites, a
@@ -35,18 +38,27 @@ Phases (each prints one JSON line; any failure exits non-zero):
    stream with their sprites' aspect ratios, a sequential collision sweep;
    climber hard: center-agent view up a tall world, wall themes, patrolling
    enemies; heist hard: the maze with keys and locked doors, doors blocking
-   through the entity push, free rotation):
+   through the entity push, free rotation; fruitbot hard: a vertical
+   scroller under a center-agent view, walls with locked doors, pair
+   collisions; plunder hard: lanes of ships spawned on the step stream, a
+   sequential pair sweep, HUD bars; starpilot hard: a spawner timeline
+   rolled at reset, aimed enemy bullets, the scrolling background pass;
+   bossfight hard: 257 records, shields, attack patterns with trails, the
+   two-phase pair sweep):
    a. the port on the card against the port on the CPU (whose plain
       versions the CPU tests hold against the JAX package): 8 envs, 40
       steps with forced resets, every state field and frame
-      bitwise equal; also coinrun (center-agent) and maze (static) in the PNG
+      bitwise equal; bossfight's levels staged so that the boss takes hits
+      and rounds are won (its random agents never reach the boss in 40
+      steps); also coinrun (center-agent) and maze (static) in the PNG
       configuration;
    b. the main path: 4096 envs, refill bucket 512, seed 123, generated
-      assets on the nine earlier paths and PNG assets from the asset root
-      on bigfish, climber and heist: cold start, then 10 warm-up and 100
-      timed rendered steps with random actions on bigfish, climber,
-      heist, caveflyer and dodgeball, 50 on the seven earlier paths
-      (leaper 20: its resets pre-roll 300 physics steps); the kernel's
+      assets on the nine earliest paths and PNG assets from the asset root
+      on the seven asset games: cold start, then 10 warm-up and 100 timed
+      rendered steps with random actions on fruitbot, plunder, starpilot
+      and bossfight, 50 on bigfish, climber, heist, caveflyer and
+      dodgeball, 20 on the seven earliest paths (leaper 5: its resets
+      pre-roll 300 physics steps); the kernel's
       launches counted from 0 just before and read just after (launches ==
       frames, or 2 x frames for grid-dynamic games), frames not black;
    c. the final frames through the kernel and through the plain version,
@@ -59,8 +71,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
       and its bound, the step's split (game step, refill, frame; miner's
       gravity sweep; leaper's pre-roll; jumper's cell scans and path
       search; reposition's retries; heist's maze with doors; pair
-      collisions, the entity-reflect sweep, dodgeball's enemy sweep and
-      bigfish's and heist's agent-collision sweeps), torch ops per refill
+      collisions, the entity-reflect sweep, dodgeball's enemy sweep,
+      bigfish's and heist's agent-collision sweeps, starpilot's spawner
+      timeline, bossfight's barrier sweep), torch ops per refill
       from one
       profiled refill at the bucket size, and device time by kernel from a
       short profiler window;
@@ -82,6 +95,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -99,6 +113,7 @@ from procgen_torch import fmath as fm
 from procgen_torch.bench import synth_assets
 from procgen_torch.bench.profiling import profiled
 from procgen_torch.config import DistributionMode, EnvConfig
+from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine.base import AGENT_SWEEP_SPAN, PAIRS_SPAN
 from procgen_torch.engine.entity_ops import REPOSITION_SPAN
 from procgen_torch.engine.game import step_env_no_reset
@@ -106,11 +121,14 @@ from procgen_torch.engine.levelgen.mazegen import DOORS_SPAN
 from procgen_torch.engine.levelgen.roomgen import FIND_PATH_SPAN
 from procgen_torch.engine.physics import REFLECT_SPAN
 from procgen_torch.env import ProcgenTorchEnv
+from procgen_torch.games import bossfight as BF
 from procgen_torch.games import make_game
+from procgen_torch.games.bossfight import BARRIER_SWEEP_SPAN
 from procgen_torch.games.dodgeball import ENEMY_SWEEP_SPAN
 from procgen_torch.games.jumper import SCANS_SPAN
 from procgen_torch.games.leaper import PREROLL_SPAN
 from procgen_torch.games.miner import SWEEP_SPAN
+from procgen_torch.games.starpilot import SPAWNERS_SPAN
 from procgen_torch.parallel.fast import REFILL_SPAN, make_fast_fns
 from procgen_torch.render import assets, compositor, fast2
 from procgen_torch.render.pack import RenderPack
@@ -133,17 +151,21 @@ WARMUP = 10
 # center-agent view with entity push, leaper the static view with tiled and
 # rotated sprites, ninja and jumper center-agent views with a HUD,
 # caveflyer (a center-agent view) and dodgeball (a static one) with free
-# rotation and pair collisions; bigfish, climber and heist, which read
-# their sprites' aspect ratios from the PNG assets, run in the default
-# configuration, PNG assets.  The seven earliest paths run 50 timed steps
-# (leaper 20: each of its resets pre-rolls 300 physics steps), enough for
-# their env-steps/s to take in several refills; the other five run 100.
+# rotation and pair collisions; the seven games that read their sprites'
+# aspect ratios from the PNG assets (bigfish, climber, heist, fruitbot,
+# plunder, starpilot, bossfight) run in the default configuration, PNG
+# assets.  The four newest paths run 100 timed steps; to keep the script's
+# time, the earlier ones run fewer than they did when they were new: 50
+# (caveflyer, dodgeball, bigfish, climber, heist), 20 (the seven earliest)
+# and 5 (leaper: each of its resets pre-rolls 300 physics steps).
 PATHS = (
-    ("maze", "hard", 50, True), ("miner", "hard", 50, True), ("chaser", "hard", 50, True),
-    ("coinrun", "hard", 50, True), ("leaper", "hard", 20, True), ("ninja", "hard", 50, True),
-    ("jumper", "hard", 50, True), ("caveflyer", "hard", 100, True),
-    ("dodgeball", "hard", 100, True), ("bigfish", "hard", 100, False),
-    ("climber", "hard", 100, False), ("heist", "hard", 100, False),
+    ("maze", "hard", 20, True), ("miner", "hard", 20, True), ("chaser", "hard", 20, True),
+    ("coinrun", "hard", 20, True), ("leaper", "hard", 5, True), ("ninja", "hard", 20, True),
+    ("jumper", "hard", 20, True), ("caveflyer", "hard", 50, True),
+    ("dodgeball", "hard", 50, True), ("bigfish", "hard", 50, False),
+    ("climber", "hard", 50, False), ("heist", "hard", 50, False),
+    ("fruitbot", "hard", 100, False), ("plunder", "hard", 100, False),
+    ("starpilot", "hard", 100, False), ("bossfight", "hard", 100, False),
 )
 # earlier games also held card vs CPU in the PNG configuration
 PNG_CARD_VS_CPU = (("coinrun", "hard"), ("maze", "hard"))
@@ -235,9 +257,10 @@ def cuda_ms(fn, iters: int) -> float:
 # sums host ns, count and torch ops per span, and device ns by kernel)
 REFILL_SPANS = {"preroll": PREROLL_SPAN, "levelgen_scans": SCANS_SPAN,
                 "find_path": FIND_PATH_SPAN, "reposition": REPOSITION_SPAN,
-                "maze_doors": DOORS_SPAN}
+                "maze_doors": DOORS_SPAN, "spawners": SPAWNERS_SPAN}
 STEP_SPANS = {"pair_collisions": PAIRS_SPAN, "entity_reflect": REFLECT_SPAN,
-              "enemy_sweep": ENEMY_SWEEP_SPAN, "agent_sweep": AGENT_SWEEP_SPAN}
+              "enemy_sweep": ENEMY_SWEEP_SPAN, "agent_sweep": AGENT_SWEEP_SPAN,
+              "barrier_sweep": BARRIER_SWEEP_SPAN}
 SPANS = (REFILL_SPAN, FRAME_SPAN, SWEEP_SPAN, *REFILL_SPANS.values(), *STEP_SPANS.values())
 
 
@@ -370,12 +393,57 @@ def phase_trig(dev):
     emit("trig", function="fmath.dsincos", angles=TRIG_ANGLES, range=[-300, 300],
          card_vs_cpu_differ=differ, torch_float64_trig_card_vs_cpu_differ=torch_differ,
          card_ms_all_angles=ms)
+    # atan2f (starpilot's aimed bullets) and sqrt32 (the sub-step count,
+    # the aimed bullets' speed), card against CPU, and how often torch's own
+    # float32 sqrt differs between the two (the route sqrt32 replaces)
+    n = TRIG_ANGLES // 4
+    y, x = (torch.randn(n, generator=gen) * torch.exp(torch.rand(n, generator=gen) * 20 - 10)
+            for _ in range(2))
+    y[:16], x[:16] = 0.0, 0.0  # signed zeros and the axes
+    y[:8] = -y[:8]
+    s2 = x * x + y * y
+    checks = {}
+    for name, fn, args in (("fmath.atan2f", fm.atan2f, (y, x)), ("fmath.sqrt32", fm.sqrt32, (s2,))):
+        want = fn(*args)
+        got = fn(*(a.to(dev) for a in args)).cpu()
+        checks[name] = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    torch_sqrt_differ = int((torch.sqrt(s2).view(torch.int32)
+                             != torch.sqrt(s2.to(dev)).cpu().view(torch.int32)).sum())
+    if any(checks.values()):
+        raise AssertionError(f"card results differ from the CPU's: {checks}")
+    emit("trig_atan2f_sqrt", inputs=n, card_vs_cpu_differ=checks,
+         torch_float32_sqrt_card_vs_cpu_differ=torch_sqrt_differ)
+
+
+def stage_bossfight(state):
+    """Every env's shields down, each hit a round (round health 1), and one
+    of the agent's bullets just under the boss, flying up: the next step
+    damages the boss and ends a round (the boss prepared for the next, its
+    shields raised) or the level.  Random agents do not reach the boss in
+    40 steps."""
+    ex = dict(state.extra)
+    ex["shields_are_up"] = torch.zeros_like(ex["shields_are_up"])
+    ex["round_health"] = torch.ones_like(ex["round_health"])
+    b = BF.BOSS_SLOT
+    ents = eo.write_slot(state.ents, b, health=ex["num_rounds"].to(torch.float32))
+    bullet = eo.make_entity(ents.x[:, b], ents.y[:, b] - ents.ry[:, b] - 0.5, 0.0,
+                            BF.PLAYER_BULLET_VEL, 0.25, 0.25, BF.PLAYER_BULLET)
+    bullet.update(image_theme=ex["player_laser_theme"], collides_with_entities=True,
+                  expire_time=25)
+    ents, _ = eo.append_entity(ents, bullet)
+    return state.replace(ents=ents, extra=ex)
+
+
+# bossfight's card-vs-CPU levels are staged (the same edit on both
+# devices) before these steps: the first and after the forced resets
+BOSSFIGHT_STAGED_STEPS = (0, 14, 31)
 
 
 def phase_card_vs_cpu(dev, game, mode, generated=True):
     """The port on the card against the port on the CPU, small input, with
     forced resets (action -1) so that levels are swapped in (leaper's CPU
-    half pre-rolls 300 physics steps in every reset)."""
+    half pre-rolls 300 physics steps in every reset).  Bossfight's staged
+    levels must score: the boss takes hits and rounds are won."""
     n, steps = 8, 40
     cfg = game_cfg(game, mode, n, generated)
     gd = make_game(cfg)
@@ -393,13 +461,15 @@ def phase_card_vs_cpu(dev, game, mode, generated=True):
             a = rs.randint(0, 15, size=n).astype(np.int32)
             if t in (12, 13, 30):  # forced resets run the queue swap
                 a[:] = -1
+            if game == "bossfight" and t in BOSSFIGHT_STAGED_STEPS:
+                fs = dataclasses.replace(fs, state=stage_bossfight(fs.state))
             acts = torch.as_tensor(a, device=d)
             fs = step(fs, acts)
             frames.append(fast2.render_frames2(gd, cfg, fs.state, pack).cpu())
             states.append(convert.fast_state_to_numpy(fs))
         runs[d] = (frames, states)
     (f_cpu, s_cpu), (f_gpu, s_gpu) = runs["cpu"], runs[dev]
-    dones = rewards = 0
+    dones = rewards = rounds_won = 0
     for t in range(steps):
         if not torch.equal(f_cpu[t], f_gpu[t]):
             raise AssertionError(f"{game}: card frame differs from CPU frame at step {t}")
@@ -411,9 +481,17 @@ def phase_card_vs_cpu(dev, game, mode, generated=True):
                 raise AssertionError(f"{game}: card state {k} differs from CPU at step {t}")
         dones += int(s_cpu[t]["state.done"].sum())
         rewards += int((s_cpu[t]["state.reward"] != 0).sum())
+        if game == "bossfight" and t > 0:  # a round won and the next prepared
+            rose = s_cpu[t]["state.extra.round_num"] - s_cpu[t - 1]["state.extra.round_num"]
+            rounds_won += int(np.clip(rose, 0, None).sum())
+    staged = {}
+    if game == "bossfight":
+        staged = dict(staged_steps=list(BOSSFIGHT_STAGED_STEPS), rounds_won=rounds_won)
+        if rewards == 0 or rounds_won == 0:
+            raise AssertionError(f"{game}: the staged levels never scored: {staged}")
     emit("card_vs_cpu", game=game, mode=mode, assets=asset_kind(generated), envs=n,
          steps=steps, episodes_ended=dones,
-         rewarded_steps=rewards, fields=len(s_cpu[0]), bitwise_equal=True)
+         rewarded_steps=rewards, fields=len(s_cpu[0]), bitwise_equal=True, **staged)
 
 
 def phase_main_path(dev, game, mode, timed_steps, generated=True):
@@ -495,11 +573,9 @@ def phase_final_frames(run, dev):
     tables = fast2.get_tables(gd, cfg, run.pack, dev)
     records, kmax = fast2.entity_records(gd, cfg, states, tables)
     records = fast2._pad_records(records).contiguous()
-    canvas = states.static_layer.to(torch.float32)
-    if gd.center_agent(cfg):  # the moving view draws bg (and grid) per frame
-        canvas = fast2.bg_pass(gd, cfg, states, tables, canvas)
-        if not gd.grid_dynamic:
-            canvas = fast2.grid_pass(gd, cfg, states, tables, canvas)
+    # the background (scrolling, or a moving view's with its grid) or the
+    # baked static layer
+    canvas = fast2.base_canvas(gd, cfg, states, tables)
     before = compositor.launches
     filters = ("neg", "nonneg") if gd.grid_dynamic else ("all",)
     k, err, inputs = canvas, 0.0, []

@@ -8,9 +8,10 @@ or more kernels on a card) of one refill at ``--envs`` envs (the refill
 bucket), of one game step and of one frame, with the profiler's host
 activity (procgen_torch/bench/profiling.py), and those inside the named
 spans of the refill (leaper's pre-roll, jumper's scans, the path search,
-reposition's retries, heist's maze with doors) and of the step (miner's
-sweep, pair collisions, the entity-reflect sweep, dodgeball's enemy sweep,
-bigfish's and heist's agent-collision sweeps).  The game runs in its default
+reposition's retries, heist's maze with doors, starpilot's spawner
+timeline) and of the step (miner's sweep, pair collisions, the
+entity-reflect sweep, dodgeball's enemy sweep, bigfish's and heist's
+agent-collision sweeps, bossfight's barrier sweep).  The game runs in its default
 configuration, PNG assets, from ``PROCGEN_TORCH_ASSET_ROOT`` or else from a
 synthetic root written into a temporary directory; ``--generated-assets``
 runs the configuration the earlier slices measured.  On the card these counts set
@@ -38,10 +39,12 @@ from procgen_torch.engine.levelgen.mazegen import DOORS_SPAN
 from procgen_torch.engine.levelgen.roomgen import FIND_PATH_SPAN
 from procgen_torch.engine.physics import REFLECT_SPAN
 from procgen_torch.games import make_game
+from procgen_torch.games.bossfight import BARRIER_SWEEP_SPAN
 from procgen_torch.games.dodgeball import ENEMY_SWEEP_SPAN
 from procgen_torch.games.jumper import SCANS_SPAN
 from procgen_torch.games.leaper import PREROLL_SPAN
 from procgen_torch.games.miner import SWEEP_SPAN
+from procgen_torch.games.starpilot import SPAWNERS_SPAN
 from procgen_torch.parallel.fast import REFILL_SPAN, make_fast_fns
 from procgen_torch.render import assets, fast2
 from procgen_torch.render.pack import RenderPack
@@ -51,10 +54,10 @@ STEP_SPAN, FRAME_SPAN = "op_counts.game_step", "op_counts.frame"
 # spans inside a refill and inside a game step, by the name of their count
 REFILL_SPANS = {"preroll": PREROLL_SPAN, "levelgen_scans": SCANS_SPAN,
                 "find_path": FIND_PATH_SPAN, "reposition": REPOSITION_SPAN,
-                "maze_doors": DOORS_SPAN}
+                "maze_doors": DOORS_SPAN, "spawners": SPAWNERS_SPAN}
 STEP_SPANS = {"sweep": SWEEP_SPAN, "pair_collisions": PAIRS_SPAN,
               "entity_reflect": REFLECT_SPAN, "enemy_sweep": ENEMY_SWEEP_SPAN,
-              "agent_sweep": AGENT_SWEEP_SPAN}
+              "agent_sweep": AGENT_SWEEP_SPAN, "barrier_sweep": BARRIER_SWEEP_SPAN}
 SPANS = (REFILL_SPAN, STEP_SPAN, FRAME_SPAN, *REFILL_SPANS.values(), *STEP_SPANS.values())
 
 

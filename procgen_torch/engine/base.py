@@ -159,6 +159,19 @@ class GameDef:
         coordinates, (1, 1, 64) and (1, 64, 1).  Default: none."""
         return out
 
+    def dynamic_bg_rect(self, cfg, states):
+        """The scrolling background of games that draw one per step
+        (starpilot's tiled space background, starpilot.cpp:110-127):
+        (x0, tile_w, w_total, y0, h), each an (N,) float32 tensor in screen
+        pixels, for a horizontally tiled blit of the cached 64x64 background
+        mip.  Default: None, a background baked once per level."""
+        return None
+
+    def dynamic_background(self, cfg) -> bool:
+        """True for games whose background is drawn per step from
+        ``dynamic_bg_rect`` (render/fast2.dynamic_bg_pass)."""
+        return type(self).dynamic_bg_rect is not GameDef.dynamic_bg_rect
+
     def has_hud(self, cfg) -> bool:
         """True for games with screen-space overlays."""
         return (

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from procgen_torch import fmath as fm
 from procgen_torch import objects as O
 from procgen_torch import rng as R
 from procgen_torch.state import F32, I32, EntityTable, default_entity_fields
@@ -297,3 +298,32 @@ def add_entity_rxy(state, x, y, vx, vy, rx, ry, type_, active=True):
     """bag.cpp:521-529: push_back an entity at (x, y)."""
     ents, idx = append_entity(state.ents, make_entity(x, y, vx, vy, rx, ry, type_), active)
     return state.replace(ents=ents), idx
+
+
+def reposition_agent(cfg, state, rs):
+    """reposition_agent (bag.cpp:531-539): the agent at "rand01() *
+    (main_width - 2 * rx) + rx" (and y), each op rounded in turn, redrawn up
+    to 99 more times while it overlaps a live entity.  The loop stops once
+    no env redraws, read on the host every ``REPOSITION_CHECK_EVERY`` tries
+    (exact: an env that stopped draws nothing).  Returns (state, rs)."""
+    ents = state.ents
+    arx, ary = ents.rx[:, AGENT], ents.ry[:, AGENT]
+    mw, mh = state.main_width.to(F32), state.main_height.to(F32)
+
+    def try_pos(rs, act):
+        rs, ux = R.rs_rand01(rs, active=act)
+        rs, uy = R.rs_rand01(rs, active=act)
+        return rs, fm.fmuladd32(cfg, ux, mw - 2 * arx, arx), fm.fmuladd32(cfg, uy, mh - 2 * ary, ary)
+
+    with torch.profiler.record_function(REPOSITION_SPAN):
+        act = torch.ones_like(state.done)
+        rs, ax, ay = try_pos(rs, act)
+        for k in range(99):
+            hit = entity_vs_all(ents, ax, ay, arx, ary, margin=ents.collision_margin)
+            act = act & (hit & ents.alive & (ents.type != O.PLAYER)).any(1)
+            if k % REPOSITION_CHECK_EVERY == 0 and not bool(act.any()):
+                break
+            rs, nx, ny = try_pos(rs, act)
+            ax = torch.where(act, nx, ax)
+            ay = torch.where(act, ny, ay)
+    return state.replace(ents=write_slot(ents, AGENT, x=ax, y=ay)), rs

@@ -317,7 +317,7 @@ def basic_step_object(gd, cfg, state: EnvState, idxs, active=None, n_live=None,
     if cfg.parity_mode:
         nss = (4 * torch.sqrt(s2.double())).to(I32)
     else:
-        nss = (4 * torch.sqrt(s2)).to(I32)
+        nss = (4 * fm.sqrt32(s2)).to(I32)
     nss = torch.clamp(nss, min=4)
     nss = torch.where(state.grid_step[:, None], 1, nss)
     nss = torch.clamp(nss, max=gd.max_substeps)  # static safety cap

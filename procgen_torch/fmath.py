@@ -15,8 +15,6 @@ Never route these through ``addcmul``, ``lerp`` or ``torch.compile``.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -148,46 +146,97 @@ def atan2f_libm(y, x) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# face_rotation (entity.cpp:84-88) from a host table
+# atan2f of any float32 inputs, on the device, and face_rotation
 # ---------------------------------------------------------------------------
 
 
-def _face_key_parts(v):
-    """(sign bit, is zero) of each float32 of ``v`` as 0/1 ints: a signed
-    zero keeps its sign, which glibc's atan2f reads (atan2f(-0.0, -1) is
-    -pi, atan2f(+0.0, -1) is +pi)."""
-    return torch.signbit(v).to(torch.int64), (v == 0).to(torch.int64)
+def _f32_bits(b: int) -> float:
+    return float(np.array([b], np.uint32).view(np.float32)[0])
 
 
-@functools.lru_cache(maxsize=None)
-def _face_table(device: str, offset: float) -> torch.Tensor:
-    """``-atan2f(dy, dx) + offset`` in float32 for the 16 keys (sign and
-    zero-ness of dx, then of dy), nonzero components of magnitude 1."""
-    vals = np.zeros((16,), np.float32)
-    for key in range(16):
-        sx, zx, sy, zy = (key >> 3) & 1, (key >> 2) & 1, (key >> 1) & 1, key & 1
-        dx = np.float32((0.0 if zx else 1.0) * (-1.0 if sx else 1.0))
-        dy = np.float32((0.0 if zy else 1.0) * (-1.0 if sy else 1.0))
-        a = atan2f_libm(dy, dx)
-        vals[key] = -a + np.float32(offset)  # float32 negate, float32 add
-    return torch.as_tensor(vals).to(device)
+# glibc's float atan2f/atanf (fdlibm's e_atan2f.c and s_atanf.c), constants
+# read from their bit patterns
+_ATANHI = tuple(_f32_bits(b) for b in (0x3EED6338, 0x3F490FDA, 0x3F7B985E, 0x3FC90FDA))
+_ATANLO = tuple(_f32_bits(b) for b in (0x31AC3769, 0x33222168, 0x33140FB4, 0x33A22168))
+_AT = tuple(_f32_bits(b) for b in (
+    0x3EAAAAAB, 0xBE4CCCCD, 0x3E124925, 0xBDE38E38, 0x3DBA2E6E, 0xBD9D8795,
+    0x3D886B35, 0xBD6EF16B, 0x3D4BDA59, 0xBD15A221, 0x3C8569D7))
+_PI = _f32_bits(0x40490FDB)
+_PI_O_2 = _f32_bits(0x3FC90FDB)
+_PI_LO = _f32_bits(0xB3BBBD2E)
 
 
-def face_rotation(cfg, dx: torch.Tensor, dy: torch.Tensor, offset: float = 0.0):
+def pick(idx: torch.Tensor, values) -> torch.Tensor:
+    """``values[idx]`` for an integer tensor ``idx`` in range (a theme's
+    sprite aspect ratio, a branch's constant): ``values`` are two or more
+    Python numbers or tensors that broadcast against ``idx``, picked by a
+    chain of selects (no host-to-device copy)."""
+    out = values[-1]
+    for k in range(len(values) - 2, -1, -1):
+        out = torch.where(idx == k, values[k], out)
+    return out
+
+
+def _atanf(x: torch.Tensor) -> torch.Tensor:
+    """glibc's ``atanf`` of finite float32 ``x``: every branch computed as
+    float32 ops in the library's order and the taken one selected."""
+    hx = x.view(torch.int32)
+    ix = hx & 0x7FFFFFFF
+    ax = torch.abs(x)
+    # argument reduction (|x| >= 7/16): id 0-3
+    idv = torch.where(ix < 0x3F300000, 0, torch.where(
+        ix < 0x3F980000, 1, torch.where(ix < 0x401C0000, 2, 3)))
+    r0 = (ax * 2.0 - 1.0) / (ax + 2.0)
+    r1 = (ax - 1.0) / (ax + 1.0)
+    r2 = (ax - 1.5) / (ax * 1.5 + 1.0)
+    r3 = torch.full_like(ax, -1.0) / ax
+    small = ix < 0x3EE00000  # |x| < 7/16: no reduction
+    xr = torch.where(small, x, torch.where(idv == 0, r0, torch.where(
+        idv == 1, r1, torch.where(idv == 2, r2, r3))))
+    z = xr * xr
+    w = z * z
+    s1 = z * (_AT[0] + w * (_AT[2] + w * (_AT[4] + w * (_AT[6] + w * (_AT[8] + w * _AT[10])))))
+    s2 = w * (_AT[1] + w * (_AT[3] + w * (_AT[5] + w * (_AT[7] + w * _AT[9]))))
+    s = s1 + s2
+    reduced = pick(idv, _ATANHI) - ((xr * s - pick(idv, _ATANLO)) - xr)
+    out = torch.where(small, xr - xr * s, torch.where(hx < 0, -reduced, reduced))
+    out = torch.where(ix < 0x31000000, x, out)  # |x| < 2^-29
+    huge = f32(np.float32(_ATANHI[3]) + np.float32(_ATANLO[3]))  # |x| >= 2^25
+    return torch.where(ix >= 0x4C000000, torch.where(hx < 0, -huge, huge), out)
+
+
+def atan2f(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """C++ ``atan2f`` (glibc's float atan2, which the reference links) of
+    finite float32 tensors, as eager float32 ops in the library's order:
+    each op rounds as IEEE requires on the CPU and on the card alike
+    (divisions are tensor by tensor), so both give glibc's bits.
+    tests/test_torch_trig.py holds it against glibc through ctypes."""
+    y, x = torch.broadcast_tensors(y.to(F32), x.to(F32))
+    hx = x.view(torch.int32)
+    hy = y.view(torch.int32)
+    ix = hx & 0x7FFFFFFF
+    iy = hy & 0x7FFFFFFF
+    m = ((hy >> 31) & 1) | ((hx >> 30) & 2)  # 2 * sign(x) + sign(y)
+    k = (iy - ix) >> 23
+    # x == 1 returns atanf(y) at once; atanf is odd and y / 1 is exact, so
+    # that is the quadrant rule below on |y / x| without the |y/x| > 2^60
+    # shortcut
+    z = _atanf(torch.abs(y / x))
+    z = torch.where((k > 60) & (hx != 0x3F800000),
+                    f32(np.float32(_PI_O_2) + np.float32(0.5) * np.float32(_PI_LO)),
+                    torch.where((hx < 0) & (k < -60), 0.0, z))
+    out = torch.where(m == 0, z, torch.where(m == 1, -z, torch.where(
+        m == 2, _PI - (z - _PI_LO), (z - _PI_LO) - _PI)))
+    out = torch.where(ix == 0, torch.where(hy < 0, -_PI_O_2, _PI_O_2), out)
+    return torch.where(iy == 0, torch.where(m < 2, y, torch.where(m == 2, _PI, -_PI)), out)
+
+
+def face_rotation(dx: torch.Tensor, dy: torch.Tensor, offset: float = 0.0) -> torch.Tensor:
     """Entity::face_direction (entity.cpp:84-88): ``rotation = -atan2(dy,
     dx) + offset``, where ``atan2`` is glibc's ``atan2f`` (entity.cpp
-    includes <math.h>) and the chain is float32 in both modes.  Read from a
-    16-entry host table keyed on the sign bit and zero-ness of each
-    component, so the card and the CPU read the same bits.  Exact where one
-    component is zero (every enemy of caveflyer and dodgeball moves along
-    one axis: then only the signs matter) or ``|dx| == |dy|`` (dodgeball's
-    agent faces one of 8 directions of unit components); other inputs are
-    outside this table's domain.  The caller applies the "only when moving"
-    guard."""
-    table = _face_table(str(dx.device), f32(offset))
-    sx, zx = _face_key_parts(dx)
-    sy, zy = _face_key_parts(dy)
-    return table[sx * 8 + zx * 4 + sy * 2 + zy]
+    includes <math.h>) and the chain is float32 in both modes.  The caller
+    applies the "only when moving" guard."""
+    return -atan2f(dy, dx) + f32(offset)
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +339,36 @@ def dsincos(cfg, x: torch.Tensor):
     store), narrowed to float32 on the fast path."""
     s, c = sincos64(_t(x).to(F64))
     return (s, c) if cfg.parity_mode else (s.to(F32), c.to(F32))
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, on the CPU and on the card
+    alike.  The card's ``sqrt`` is correctly rounded; torch's CPU one is not
+    (about 0.7% of random float32 inputs come out an ulp off, and about
+    0.8% in float64), and on the CPU the float64 root narrowed is still an
+    ulp off on a few inputs in some runs.  So the narrowed float64 root
+    ``r`` takes one correction step, exact in float64: the midpoints
+    between ``r`` and its float32 neighbours and their squares are exact
+    there (25 and 50 bits), and the root of a float32 never lies on a
+    midpoint, so ``r`` moves to the neighbour whose side ``x`` is on."""
+    x = _t(x)
+    x64 = x.to(F64)
+    r = torch.sqrt(x64).to(F32)
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    dn = torch.nextafter(r, torch.zeros_like(r))
+    r64 = r.to(F64)
+    hi = (r64 + up.to(F64)) * 0.5
+    lo = (r64 + dn.to(F64)) * 0.5
+    return torch.where(x64 > hi * hi, up, torch.where(x64 < lo * lo, dn, r))
+
+
+def dsqrt(cfg, x: torch.Tensor) -> torch.Tensor:
+    """C++ ``sqrt(float)``: the double overload of a float operand, float64
+    in parity mode (the caller narrows at the store; on the CPU torch's
+    float64 root may be an ulp off, ROADMAP A3), the correctly rounded
+    float32 root otherwise."""
+    x = _t(x)
+    return torch.sqrt(x.to(F64)) if cfg.parity_mode else sqrt32(x)
 
 
 def atan2_wide(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -160,10 +160,8 @@ class BigFish(GameDef):
         # choose_random_theme (bag.cpp:1038-1041): randn(3 themes)
         mt, theme = R.mt_randn(mt, len(self.FISH_ASSETS), active=spawn)
         fields["image_theme"] = theme
-        a0, a1, a2 = self.fish_aspects
-        aspect = torch.where(theme == 0, a0, torch.where(theme == 1, a1, a2))
         # match_aspect_ratio (bag.cpp:1014-1023): ry = rx / aspect(theme)
-        fields["ry"] = fm.fdiv(cfg, ent_r, aspect)
+        fields["ry"] = fm.fdiv(cfg, ent_r, fm.pick(theme, self.fish_aspects))
         fields["is_reflected"] = ~moves_right
         ents, _ = eo.append_entity(state.ents, fields, active=spawn)
         state = state.replace(rng=mt, ents=ents)

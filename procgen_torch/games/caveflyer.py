@@ -317,7 +317,7 @@ class CaveFlyer(GameDef):
 
         # enemies face their motion (caveflyer.cpp:302-307)
         moving = (ents.vx != 0) | (ents.vy != 0)
-        face = fm.face_rotation(cfg, ents.vx, ents.vy, -PI / 2)
+        face = fm.face_rotation(ents.vx, ents.vy, -PI / 2)
         rot = torch.where(ents.alive & (ents.type == ENEMY) & moving, face, ents.rotation)
         ents = ents.replace(rotation=rot)
 

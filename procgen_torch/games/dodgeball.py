@@ -219,34 +219,6 @@ class Dodgeball(GameDef):
                 rooms, count = add_room(rooms, count, r, nonempty)
         return state, rs
 
-    def _reposition_agent(self, cfg, state, rs):
-        """reposition_agent (bag.cpp:531-539): "rand01() * (mw - 2 * rx) +
-        rx", each op rounded in turn, redrawn up to 99 times while the agent
-        overlaps a live entity.  The loop stops once no env redraws, read on
-        the host every few tries."""
-        ents = state.ents
-        a = eo.AGENT
-        arx, ary = ents.rx[:, a], ents.ry[:, a]
-        mw = float(self.world_dim)
-
-        def try_pos(rs, act):
-            rs, ux = R.rs_rand01(rs, active=act)
-            rs, uy = R.rs_rand01(rs, active=act)
-            return rs, fm.fmuladd32(cfg, ux, mw - 2 * arx, arx), fm.fmuladd32(cfg, uy, mw - 2 * ary, ary)
-
-        with torch.profiler.record_function(eo.REPOSITION_SPAN):
-            act = torch.ones_like(state.done)
-            rs, ax, ay = try_pos(rs, act)
-            for k in range(99):
-                hit = eo.entity_vs_all(ents, ax, ay, arx, ary, margin=ents.collision_margin)
-                act = act & (hit & ents.alive & (ents.type != O.PLAYER)).any(1)
-                if k % eo.REPOSITION_CHECK_EVERY == 0 and not bool(act.any()):
-                    break
-                rs, nx, ny = try_pos(rs, act)
-                ax = torch.where(act, nx, ax)
-                ay = torch.where(act, ny, ay)
-        return state.replace(ents=eo.write_slot(ents, a, x=ax, y=ay)), rs
-
     def game_reset(self, cfg, state: EnvState, rs):
         state, rs = base_game_reset(self, cfg, state, rs)
         N = state.num_envs
@@ -271,7 +243,7 @@ class Dodgeball(GameDef):
         d_ry = torch.where(horiz, exit_r, doorlen / 2).to(F32)
         rs, state, _ = eo.spawn_entity_rxy(rs, state, d_rx, d_ry, DOOR, *box.unbind(1))
 
-        state, rs = self._reposition_agent(cfg, state, rs)
+        state, rs = eo.reposition_agent(cfg, state, rs)
 
         # enemies (dodgeball.cpp:345-367)
         rs, ne = R.rs_randn(rs, self.max_extra_enemies + 1)
@@ -285,8 +257,11 @@ class Dodgeball(GameDef):
         rs, enemy_theme = R.rs_randn(rs, NUM_ENEMY_THEMES)
 
         # configure each enemy in ascending slot order (its draws in turn);
-        # the enemies sit in consecutive slots after the door
+        # the enemies sit in consecutive slots after the door.  Each faces
+        # its velocity, computed once for every configured slot after the
+        # loop (no later write changes a configured slot's velocity)
         ents = state.ents
+        configured = torch.zeros_like(ents.alive)
         for k in range(self.max_enemies):
             on = k < num_enemies
             i = (first_enemy + k).clamp(max=ents.capacity - 1)
@@ -295,9 +270,12 @@ class Dodgeball(GameDef):
                 image_theme=enemy_theme, health=torch.ones_like(vx),
                 fire_time=torch.full_like(ne, 10), spawn_time=spawn_t,
                 collides_with_entities=torch.ones_like(on), smart_step=torch.ones_like(on),
-                vx=vx, vy=vy, rotation=fm.face_rotation(cfg, vx, vy),
+                vx=vx, vy=vy,
             )
             ents = ents.replace(**{f: eo.set_at(getattr(ents, f), i, v, on) for f, v in upd.items()})
+            configured = eo.set_at(configured, i, True, on)
+        ents = ents.replace(rotation=torch.where(
+            configured, fm.face_rotation(ents.vx, ents.vy), ents.rotation))
         is_wall = ents.alive & (ents.type == LAVA_WALL)
         ents = ents.replace(collides_with_entities=ents.collides_with_entities | is_wall)
         ents = eo.write_slot(ents, eo.AGENT, rotation=0.0)  # face_direction(1, 0)
@@ -377,7 +355,7 @@ class Dodgeball(GameDef):
         vx = (torch.div(lma, 3, rounding_mode="floor") - 1).to(F32)
         vy = (lma % 3 - 1).to(F32)
         moving = (vx != 0) | (vy != 0)
-        rot = torch.where(moving, fm.face_rotation(cfg, vx, vy), state.ents.rotation[:, a])
+        rot = torch.where(moving, fm.face_rotation(vx, vy), state.ents.rotation[:, a])
         ents = eo.write_slot(state.ents, a, rotation=rot)
         fire = (state.special_action == 1) & (state.cur_time - extra["last_fire_time"] >= 7)
         ball = eo.make_entity(ents.x[:, a], ents.y[:, a], vx * self.ball_vscale,
@@ -414,7 +392,8 @@ class Dodgeball(GameDef):
             | (ents.y < ents.ry) | (ents.y > mw - ents.ry)
         )
         ents = ents.replace(will_erase=ents.will_erase | (is_ball & oob))
-        order, count, n_max = descending_slots(ents.alive & (ents.type == ENEMY))
+        swept = ents.alive & (ents.type == ENEMY)
+        order, count, n_max = descending_slots(swept)
         mt = state.rng
         for k in range(n_max):
             i = order[:, k]
@@ -440,12 +419,15 @@ class Dodgeball(GameDef):
             mt, ft = R.mt_randn(mt, 4, active=do_fire)
             evx = torch.where(fire_v, 0.0, torch.where(fire_h, bvelx * ENEMY_VEL, evx))
             evy = torch.where(fire_v, bvely * ENEMY_VEL, torch.where(fire_h, 0.0, evy))
-            rot = torch.where((evx != 0) | (evy != 0), fm.face_rotation(cfg, evx, evy),
-                              eo.at(ents.rotation, i))
             fire_time = torch.where(do_fire, state.cur_time + ft, eo.at(ents.fire_time, i))
-            upd = dict(vx=evx, vy=evy, spawn_time=spawn_t, rotation=rot, fire_time=fire_time)
+            upd = dict(vx=evx, vy=evy, spawn_time=spawn_t, fire_time=fire_time)
             ents = ents.replace(**{f: eo.set_at(getattr(ents, f), i, v, on) for f, v in upd.items()})
             ents, _ = eo.append_entity(ents, eball, active=do_fire)
+        # each swept enemy that moves faces its velocity: one call after the
+        # sweep, since an iteration writes only its own enemy's velocity
+        moving = swept & ((ents.vx != 0) | (ents.vy != 0))
+        ents = ents.replace(rotation=torch.where(
+            moving, fm.face_rotation(ents.vx, ents.vy), ents.rotation))
         return state.replace(ents=ents, rng=mt)
 
 

@@ -6,7 +6,7 @@ exit are placed in their cells through ``entity_ops.reposition`` and take
 their sprite's aspect ratio (read from the PNG headers when the game is
 built).  Locked doors block the agent through the entity-push branch of the
 sub-step until their key is held; the agent turns to face its move
-(``fmath.face_rotation``, whose table covers its axis and diagonal moves).
+(``fmath.face_rotation``).
 Memory mode centres the view on the agent.
 """
 
@@ -47,12 +47,6 @@ KEY_ASSETS = (
 )
 EXIT_ASSET = "misc_assets/gemYellow.png"
 MAX_EVENTS = 8  # <= 3 keys + 3 doors + the exit + the agent
-
-
-def _by_theme(theme: torch.Tensor, values) -> torch.Tensor:
-    """``values[theme]`` for a theme in 0..2 (a chain of selects)."""
-    v0, v1, v2 = values
-    return torch.where(theme == 0, v0, torch.where(theme == 1, v1, v2))
 
 
 class HeistGame(GameDef):
@@ -128,7 +122,7 @@ class HeistGame(GameDef):
         hk = state.extra["has_keys"]
         shape = (-1,) + (1,) * (theme.dim() - 1)
         theme = theme.clamp(0, 2)
-        return _by_theme(theme, [hk[:, c].reshape(shape) for c in range(3)])
+        return fm.pick(theme, [hk[:, c].reshape(shape) for c in range(3)])
 
     def is_blocked_ents_vals(self, cfg, state, src_type, tgt, is_horizontal):
         # heist.cpp:66-71: locked doors block until their key is held
@@ -231,7 +225,7 @@ class HeistGame(GameDef):
             )
             theme = torch.where(k_key, (v - O.KEY_OBJ - 1).clamp(0, 2), 0)
             aspect = torch.where(
-                k_key, _by_theme(theme, [float(a) for a in self.key_aspects]),
+                k_key, fm.pick(theme, [float(a) for a in self.key_aspects]),
                 float(self.exit_aspect),
             )
             fields["x"] = torch.where(k_door, wx + 0.5, px)
@@ -317,12 +311,12 @@ class HeistGame(GameDef):
 
     def game_step(self, cfg, state: EnvState) -> EnvState:
         state = base_game_step(self, cfg, state)
-        # face_direction (heist.cpp:206-209, entity.cpp:84-88): the action
-        # velocities are -1, 0 or 1, on the face_rotation table
+        # face_direction (heist.cpp:206-209, entity.cpp:84-88) of the action
+        # velocities
         avx, avy = state.action_vx, state.action_vy
         moving = (avx != 0) | (avy != 0)
         rot = torch.where(
-            moving, fm.face_rotation(cfg, avx, avy), state.ents.rotation[:, eo.AGENT]
+            moving, fm.face_rotation(avx, avy), state.ents.rotation[:, eo.AGENT]
         )
         return state.replace(ents=eo.write_slot(state.ents, eo.AGENT, rotation=rot))
 

@@ -264,7 +264,7 @@ class Jumper(GameDef):
         highlight = rgb_constant(HIGHLIGHT_COLOR, dev)
         out = torch.where(on_line[..., None], highlight, out)
 
-        dist = torch.sqrt(
+        dist = fm.sqrt32(
             sq(ents.x[:, a] - ents.x[:, g]) + sq(ents.y[:, a] - ents.y[:, g])
         )
         dist_pct = dist / (states.main_width.to(F32) * fm.f32(np.sqrt(2)))

@@ -35,6 +35,18 @@ def _kmax_bound(kmax, E: int) -> int:
     return E if kmax is None else min(E, int(kmax))
 
 
+def _hull(t, ok):
+    """Per record, the pixels ``[first, end)`` of one axis whose centres lie
+    in its box (``0 <= t < 1``) in any env where ``ok``: ``t`` (N, K, 64),
+    ``ok`` (N, K).  Returns a (K, 2) int64 tensor; ``first >= end`` where
+    no env's box holds a pixel centre."""
+    hit = ((t >= 0) & (t < 1) & ok[..., None]).any(0)  # (K, 64)
+    pos = torch.arange(RES, device=t.device)
+    first = torch.where(hit, pos, RES).amin(1)
+    end = torch.where(hit, pos + 1, 0).amax(1)
+    return torch.stack([first, end], 1)
+
+
 def composite_entities_ref(tables, records, kmax, canvas, z_filter="all"):
     """Plain PyTorch compositor (direct texel indexing).
 
@@ -42,33 +54,53 @@ def composite_entities_ref(tables, records, kmax, canvas, z_filter="all"):
     canvas: (N, 64, 64, 3) f32.  Returns the blended canvas (new tensor).
     Op order of the reference package: ``a_t = tex_a * (alpha / 255)``,
     premultiplied ``rgb * a_t``, both rounded to bf16 (round to nearest
-    even), then ``c = s + c * (1 - a)``, each op separately rounded."""
+    even), then ``c = s + c * (1 - a)``, each op separately rounded.
+
+    A pixel outside a record's box takes ``c = 0 + c * (1 - 0)``, which
+    leaves every ``c >= +0`` as it is (the canvases are; a -0.0 would turn
+    into +0.0), so each record is blended over the rectangle of pixels that
+    lie in its box in some env of the batch, from the same box tests, with
+    the rectangles of all records read to the host once."""
     atlas = tables.var_mips
     NV, R = atlas.shape[0], atlas.shape[1]
     flat = atlas.reshape(NV * R * R, 4).to(torch.float32)
     N, E, _ = records.shape
+    K = _kmax_bound(kmax, E)
     dev = canvas.device
     px = torch.arange(RES, dtype=torch.float32, device=dev) + 0.5
-    out = canvas
+    out = canvas.clone()
+
+    def field(rec, f):
+        return rec[..., _F[f]]
+
+    def axis(p, rec, lo, size):
+        return (p - field(rec, lo)[..., None]) / field(rec, size)[..., None]
+
+    recs = records[:, :K]
+    ok_all = field(recs, "ok") > 0
+    if z_filter == "neg":
+        ok_all = ok_all & (field(recs, "z") < 0)
+    elif z_filter == "nonneg":
+        ok_all = ok_all & (field(recs, "z") >= 0)
+    rects = torch.cat([_hull(axis(px, recs, "bbx0", "bbw"), ok_all),
+                       _hull(axis(px, recs, "bby0", "bbh"), ok_all)], 1).tolist()
 
     def coord(t, n):
         raw = t * n[:, None]
         u = torch.where(n[:, None] > 1, raw - torch.floor(raw), t)
         return (torch.clamp(u, 0.0, 0.9999) * R).to(torch.int32).clamp(0, R - 1)
 
-    for k in range(_kmax_bound(kmax, E)):
+    for k, (x0, x1, y0, y1) in enumerate(rects):
+        if x0 >= x1 or y0 >= y1:
+            continue  # no env draws a pixel of this record
         rec = records[:, k]
 
         def g(f):
-            return rec[:, _F[f]]
+            return field(rec, f)
 
-        ok = g("ok") > 0
-        if z_filter == "neg":
-            ok = ok & (g("z") < 0)
-        elif z_filter == "nonneg":
-            ok = ok & (g("z") >= 0)
-        col = (px[None, :] - g("bbx0")[:, None]) / g("bbw")[:, None]  # (N, 64) x
-        row = (px[None, :] - g("bby0")[:, None]) / g("bbh")[:, None]  # (N, 64) y
+        ok = ok_all[:, k]
+        col = axis(px[x0:x1], rec, "bbx0", "bbw")  # (N, w) x
+        row = axis(px[y0:y1], rec, "bby0", "bbh")  # (N, h) y
         in_x = (col >= 0) & (col < 1)
         in_y = (row >= 0) & (row < 1)
         su = coord(col, g("n_th"))
@@ -78,15 +110,16 @@ def composite_entities_ref(tables, records, kmax, canvas, z_filter="all"):
         vi = var.to(torch.int64)
         var_ok = (vi.to(torch.float32) == var) & (vi >= 0) & (vi < NV)
         idx = (vi.clamp(0, NV - 1)[:, None, None] * R + sv[:, :, None]) * R + su[:, None, :]
-        tex = torch.where(var_ok[:, None, None, None], flat[idx], 0.0)  # (N, 64, 64, 4)
+        tex = torch.where(var_ok[:, None, None, None], flat[idx], 0.0)  # (N, h, w, 4)
         a_t = tex[..., 3] * div_const(g("alpha"), 255.0)[:, None, None]
         s = (tex[..., :3] * a_t[..., None]).to(torch.bfloat16).to(torch.float32)
         a = a_t.to(torch.bfloat16).to(torch.float32)
         inside = in_y[:, :, None] & in_x[:, None, :]
         s = torch.where(inside[..., None], s, 0.0)
         a = torch.where(inside, a, 0.0)
-        blended = s + out * (1 - a)[..., None]
-        out = torch.where(ok[:, None, None, None], blended, out)
+        c = out[:, y0:y1, x0:x1]
+        blended = s + c * (1 - a)[..., None]
+        out[:, y0:y1, x0:x1] = torch.where(ok[:, None, None, None], blended, c)
     return out
 
 

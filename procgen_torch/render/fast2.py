@@ -9,9 +9,10 @@ sprite compositor is a hand-written CUDA kernel
 Render classes covered: static-grid games (maze's bg + grid baked per
 level, entities composited per step), grid-dynamic games (miner, chaser: bg
 baked per level, grid drawn per step between two composites, colour-rect
-cells), center-agent views (coinrun, ninja, jumper, maze and miner memory)
-and screen-space HUD overlays drawn after the sprites (ninja's charge bar,
-jumper's compass).  Dynamic backgrounds arrive with the games that use them.
+cells), center-agent views (coinrun, ninja, jumper, maze and miner memory),
+screen-space HUD overlays drawn after the sprites (ninja's charge bar,
+jumper's compass, plunder's bars) and a background that scrolls every step
+(starpilot's, drawn from the cached 64x64 mip by ``dynamic_bg_pass``).
 """
 
 from __future__ import annotations
@@ -176,6 +177,33 @@ def bg_pass(gd, cfg, states, tables, bm_f32):
     sv = (v * RES).to(I32).clamp(0, RES - 1).to(torch.int64)
     n = torch.arange(N, device=dev)[:, None, None]
     out = bm_f32[n, sv[:, :, None], su[:, None, :]]  # (N, 64, 64, 3)
+    inside = in_y[:, :, None] & in_x[:, None, :]
+    return torch.where(inside[..., None], out, 0.0)
+
+
+def dynamic_bg_pass(gd, cfg, states, tables):
+    """The scrolling background (starpilot.cpp:110-127), a horizontally
+    tiled blit of the cached 64x64 background mip (``static_layer``) with
+    the game's ``dynamic_bg_rect``.  The blit is separable: each row reads
+    one mip row, each column one mip column.  The reference package draws
+    it as two one-hot bf16 products whose operands are integers 0-255
+    (exact in bf16); the gathers here pick the same values.  The divisions
+    are tensor by tensor, so IEEE on the card too."""
+    N = states.num_envs
+    bm = states.static_layer
+    if not cfg.use_backgrounds:
+        return torch.zeros((N, RES, RES, 3), dtype=F32, device=bm.device)
+    px = (torch.arange(RES, dtype=F32, device=bm.device) + 0.5)[None, :]
+    x0, tile_w, w_total, y0, h = (v[:, None] for v in gd.dynamic_bg_rect(cfg, states))
+    u_raw = (px - x0) / tile_w
+    u = u_raw - torch.floor(u_raw)
+    v = (px - y0) / h
+    in_x = (px >= x0) & (px < x0 + w_total)
+    in_y = (v >= 0) & (v < 1)
+    su = (u * RES).to(I32).clamp(0, RES - 1).to(torch.int64)
+    sv = (v * RES).to(I32).clamp(0, RES - 1).to(torch.int64)
+    n = torch.arange(N, device=bm.device)[:, None, None]
+    out = bm[n, sv[:, :, None], su[:, None, :]].to(F32)  # (N, 64, 64, 3)
     inside = in_y[:, :, None] & in_x[:, None, :]
     return torch.where(inside[..., None], out, 0.0)
 
@@ -450,6 +478,21 @@ def to_frames(canvas: torch.Tensor) -> torch.Tensor:
     return torch.clamp(canvas + 0.5, 0, 255).to(torch.uint8)
 
 
+def base_canvas(gd, cfg, states, tables) -> torch.Tensor:
+    """The f32 canvas under a frame's first sprite composite: the scrolling
+    background; for a moving view the background and, unless the game is
+    grid-dynamic (its grid goes between two composites), the grid, drawn
+    from the cached 64x64 background mip; else the baked static layer."""
+    if gd.dynamic_background(cfg):
+        return dynamic_bg_pass(gd, cfg, states, tables)
+    canvas = states.static_layer.to(F32)
+    if gd.center_agent(cfg):
+        canvas = bg_pass(gd, cfg, states, tables, canvas)
+        if not gd.grid_dynamic:
+            canvas = grid_pass(gd, cfg, states, tables, canvas)
+    return canvas
+
+
 def render_frames2(gd, cfg, states, pack) -> torch.Tensor:
     """Per-step batched frames -> (N, 64, 64, 3) uint8.  The sprite
     composite runs the CUDA kernel for CUDA tensors: once per frame, or
@@ -457,12 +500,7 @@ def render_frames2(gd, cfg, states, pack) -> torch.Tensor:
     under it (z < 0) and the rest (fast2.py:670-680 of the reference
     package), then the velocity patch and the HUD."""
     tables = get_tables(gd, cfg, pack, states.done.device)
-    center = gd.center_agent(cfg)
-    if center:
-        # static_layer caches the selected 64x64 bg mip for moving views
-        canvas = bg_pass(gd, cfg, states, tables, states.static_layer.to(F32))
-    else:
-        canvas = states.static_layer.to(F32)
+    canvas = base_canvas(gd, cfg, states, tables)
     records, kmax = entity_records(gd, cfg, states, tables)
     records = _pad_records(records)
     if gd.grid_dynamic:
@@ -470,8 +508,6 @@ def render_frames2(gd, cfg, states, pack) -> torch.Tensor:
         canvas = grid_pass(gd, cfg, states, tables, canvas)
         canvas = compositor.composite_entities(tables, records, kmax, canvas, "nonneg")
     else:
-        if center:
-            canvas = grid_pass(gd, cfg, states, tables, canvas)
         canvas = compositor.composite_entities(tables, records, kmax, canvas)
     canvas = _paint_vel_info(gd, cfg, states, canvas)
     canvas = _paint_hud(gd, cfg, states, canvas)
@@ -481,10 +517,10 @@ def render_frames2(gd, cfg, states, pack) -> torch.Tensor:
 def render_static2(gd, cfg, states, pack) -> torch.Tensor:
     """Per-level static layer (batched) -> (N, 64, 64, 3) uint8: static-grid
     games bake bg + grid, grid-dynamic games the bg only; center-agent views
-    cache the selected bg mip."""
+    and scrolling backgrounds cache the selected bg mip."""
     tables = get_tables(gd, cfg, pack, states.done.device)
     bm = _select_bg(tables, states.background_index)
-    if gd.center_agent(cfg):
+    if gd.center_agent(cfg) or gd.dynamic_background(cfg):
         return to_frames(bm)
     canvas = bg_pass(gd, cfg, states, tables, bm)
     if not gd.grid_dynamic:

@@ -138,17 +138,19 @@ def mt_raw(mt: MT, active: Optional[torch.Tensor] = None):
     return MT(key=key, pos=new_pos.to(torch.int32)), out
 
 
-def _randint_value(x, low, high):
+# The values of RandGen's draws from raw 32-bit outputs ``x`` (int64
+# tensors): randint(low, high), randn(high), rand01().
+def randint_value(x, low, high):
     low = _i64(low)
     rng_range = (_i64(high) - low) & MASK32  # uint32(high - low)
     return to_int32(low + to_int32(_umod(x, rng_range)).to(torch.int64))
 
 
-def _randn_value(x, high):
+def randn_value(x, high):
     return to_int32(_umod(x, _i64(high) & MASK32))
 
 
-def _rand01_value(x):
+def rand01_value(x):
     return x.to(torch.float32) * _INV_2_32
 
 
@@ -165,13 +167,13 @@ def _randrange_value(r, low, high):
 def mt_randint(mt: MT, low, high, active=None):
     """``RandGen::randint(low, high)`` = low + x % uint32(high - low)."""
     mt, x = mt_raw(mt, active)
-    return mt, _randint_value(x, low, high)
+    return mt, randint_value(x, low, high)
 
 
 def mt_randn(mt: MT, high, active=None):
     """``RandGen::randn(high)`` = x % uint32(high)."""
     mt, x = mt_raw(mt, active)
-    return mt, _randn_value(x, high)
+    return mt, randn_value(x, high)
 
 
 def mt_randint_full(mt: MT, active=None):
@@ -183,7 +185,7 @@ def mt_randint_full(mt: MT, active=None):
 def mt_rand01(mt: MT, active=None):
     """``RandGen::rand01`` = float(double(x) / 2^32) as float32 (exact)."""
     mt, x = mt_raw(mt, active)
-    return mt, _rand01_value(x)
+    return mt, rand01_value(x)
 
 
 def mt_randbool(mt: MT, active=None):
@@ -264,10 +266,22 @@ def blk_raw_vec(blk: MTBlock, k: int):
     return blk.replace(cursor=(blk.cursor + k).to(torch.int32)), v
 
 
+def blk_raw_masked(blk: MTBlock, active: torch.Tensor):
+    """The raw draws of a run of ``K`` gated draws at once (``active`` (...,
+    K) bool, in draw order): entry k is the value the k-th of ``K``
+    consecutive ``blk_raw(blk, active[..., k])`` calls would return where
+    that call is active (elsewhere it is undefined), and the cursor moves
+    by the number of active entries."""
+    a = active.to(torch.int64)
+    offs = blk.cursor[..., None].to(torch.int64) + torch.cumsum(a, -1) - a
+    v = torch.gather(blk.vals, -1, offs.clamp(max=blk.vals.shape[-1] - 1))
+    return blk.replace(cursor=(blk.cursor + a.sum(-1)).to(torch.int32)), v
+
+
 def rs_rand01_vec(rs: MTBlock, k: int):
     """k consecutive rand01 draws from an open block."""
     rs, x = blk_raw_vec(rs, k)
-    return rs, _rand01_value(x)
+    return rs, rand01_value(x)
 
 
 def blk_overflowed(blk: MTBlock) -> torch.Tensor:
@@ -289,12 +303,12 @@ def rs_raw(rs, active=None):
 
 def rs_randint(rs, low, high, active=None):
     rs, x = rs_raw(rs, active)
-    return rs, _randint_value(x, low, high)
+    return rs, randint_value(x, low, high)
 
 
 def rs_randn(rs, high, active=None):
     rs, x = rs_raw(rs, active)
-    return rs, _randn_value(x, high)
+    return rs, randn_value(x, high)
 
 
 def rs_randint_full(rs, active=None):
@@ -304,7 +318,7 @@ def rs_randint_full(rs, active=None):
 
 def rs_rand01(rs, active=None):
     rs, x = rs_raw(rs, active)
-    return rs, _rand01_value(x)
+    return rs, rand01_value(x)
 
 
 def rs_randbool(rs, active=None):

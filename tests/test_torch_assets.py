@@ -38,8 +38,8 @@ from procgen_torch.render.pack import RenderPack
 
 torch.set_num_threads(1)
 
-GAMES = ["bigfish", "caveflyer", "chaser", "climber", "coinrun", "dodgeball", "heist",
-         "jumper", "leaper", "maze", "miner", "ninja"]
+GAMES = ["bigfish", "bossfight", "caveflyer", "chaser", "climber", "coinrun", "dodgeball",
+         "fruitbot", "heist", "jumper", "leaper", "maze", "miner", "ninja", "plunder", "starpilot"]
 
 # sprites written with fractional alpha (1-254) by the fractional roots:
 # the agents of a static-view game and of a center-agent one
@@ -125,6 +125,7 @@ def test_render_pack_matches_reference(synth_root, game):
 
 @pytest.mark.parametrize("game,flag", [("coinrun", "restrict_themes"),
                                        ("heist", "restrict_themes"),
+                                       ("plunder", "restrict_themes"),
                                        ("climber", "use_monochrome_assets")])
 def test_render_pack_flags_match_reference(synth_root, game, flag):
     kw = {flag: True}
@@ -150,3 +151,28 @@ def test_env_builds_from_the_root(synth_root):
     env.act(np.zeros(4, np.int32))
     rew, ob, first = env.observe()
     assert ob["rgb"].shape == (4, 64, 64, 3) and (ob["rgb"] > 0).mean() > 0.9
+
+
+@pytest.mark.parametrize("game,mode", [
+    ("fruitbot", "easy"), ("fruitbot", "hard"), ("plunder", "easy"), ("plunder", "hard"),
+    ("starpilot", "easy"), ("starpilot", "hard"), ("starpilot", "extreme"),
+    ("bossfight", "easy"), ("bossfight", "hard")])
+def test_env_runs_asset_games(synth_root, game, mode):
+    """The four games of the last slice build and step in every mode the
+    JAX package accepts, in the default configuration (PNG assets), on the
+    gym3 surface: act/observe rounds with a forced reset give a new level
+    and a first flag, frames of the live state."""
+    env = ProcgenTorchEnv(2, game, rand_seed=5, distribution_mode=mode, device="cpu")
+    seeds = env.state.current_level_seed.clone()
+    rs = np.random.RandomState(2)
+    for t in range(4):
+        acts = rs.randint(0, 15, size=2).astype(np.int32)
+        if t == 2:
+            acts[0] = -1  # forced reset
+        env.act(acts)
+        rew, ob, first = env.observe()
+        assert ob["rgb"].shape == (2, 64, 64, 3) and (ob["rgb"] > 0).mean() > 0.9
+        assert np.isfinite(rew).all()
+        np.testing.assert_array_equal(ob["rgb"], env.render_fn(env.state).numpy())
+        if t == 2:
+            assert first[0] and env.state.current_level_seed[0] != seeds[0]

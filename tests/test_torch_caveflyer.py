@@ -81,18 +81,22 @@ _DOUBLE_RAND01 = "double rand01() { return (double)g() / 4294967296.0; }"
 _FLOAT_RAND01 = "float rand01() { return (float)((double)g() / 4294967296.0); }"
 
 
-def build_oracle(name: str, float_rand01: bool) -> Path:
+def build_oracle(name: str, float_rand01: bool, edits=(), tag: str = "") -> Path:
     """native/<name>_oracle.cpp built into native/build (g++ -O2), as is or
-    with the reference's float rand01."""
+    with the reference's float rand01, and with ``edits`` (pairs of exact
+    source text, each found once, and its replacement; ``tag`` names the
+    build)."""
     src = REPO / "native" / f"{name}_oracle.cpp"
-    suffix = "_torch_f32rand" if float_rand01 else "_torch"
+    suffix = ("_torch_f32rand" if float_rand01 else "_torch") + tag
     binary = REPO / "native" / "build" / f"{name}_oracle{suffix}"
     binary.parent.mkdir(exist_ok=True)
     if not binary.exists() or binary.stat().st_mtime < src.stat().st_mtime:
         text = src.read_text()
         if float_rand01:
-            assert text.count(_DOUBLE_RAND01) == 1, name
-            text = text.replace(_DOUBLE_RAND01, _FLOAT_RAND01)
+            edits = ((_DOUBLE_RAND01, _FLOAT_RAND01),) + tuple(edits)
+        for old, new in edits:
+            assert text.count(old) == 1, (name, old)
+            text = text.replace(old, new)
         tmp = binary.with_name(f"{binary.name}.{os.getpid()}")
         tmp_src = tmp.with_suffix(".cpp")
         tmp_src.write_text(text)

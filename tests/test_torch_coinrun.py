@@ -149,7 +149,8 @@ class JaxCarrier:
 
     def __init__(self, gd, cfg):
         tmpl = j_template(gd, cfg)
-        batched = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (N,) + x.shape), tmpl)
+        n = cfg.num_envs
+        batched = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (n,) + x.shape), tmpl)
         pairs, self.treedef = jax.tree_util.tree_flatten_with_path(batched)
         self.names = list(convert.fields_from_keypaths(pairs))
         self.dtypes = [leaf.dtype for _, leaf in pairs]
@@ -185,8 +186,9 @@ def _frames_bitwise(want, got, where):
 
 def stepped_against_reference(j_cfg, cfg, policy, steps, prepare=None, ftz_fields=(),
                               frames_equal=None):
-    """Step a port batch and the JAX package's side by side from port-made
-    levels carried into the JAX EnvState, seeded actions ``policy(rs)``.
+    """Step a port batch (``cfg.num_envs`` envs) and the JAX package's side
+    by side from port-made levels carried into the JAX EnvState, seeded
+    actions ``policy(rs)``.
     After each step every field and the frame must agree (the view_dim
     rule of tests/test_torch_fast_path.py; ``ftz_fields`` compared through
     ``flush_denormals``; frames bitwise unless ``frames_equal(want, got,
@@ -207,8 +209,8 @@ def stepped_against_reference(j_cfg, cfg, policy, steps, prepare=None, ftz_field
         s = jax.vmap(lambda s: j_renderer.update_view_params(j_gd, j_cfg, s))(s)
         return s, j_fast2.render_frames2(j_gd, j_cfg, s, j_pack)
 
-    every = torch.ones(N, dtype=torch.bool)
-    state = seeded_template(gd, cfg, N, device="cpu")
+    every = torch.ones(cfg.num_envs, dtype=torch.bool)
+    state = seeded_template(gd, cfg, cfg.num_envs, device="cpu")
     state = prepare(_port_reset(gd, cfg, pack, state, every), every)
     j_state = carry(state)
     rs = np.random.RandomState(5)
@@ -256,11 +258,13 @@ _ACTION_FIELDS = (
 )
 
 
-def check_fast_path_matches_inline(cfg, policy):
+def check_fast_path_matches_inline(cfg, policy, carried=()):
     """The port's fast path (refill bucket 2) against its inline path
     (step_env with reset), forced resets at t = 40, 41 and 90: every field
-    but the action bookkeeping, and every frame.  The cold-start state also
-    survives a numpy round trip through convert.py, dtypes included."""
+    but the action bookkeeping (and ``carried``: other fields a queued level
+    takes from the step that generated it, which the next step rewrites
+    before reading), and every frame.  The cold-start state also survives a
+    numpy round trip through convert.py, dtypes included."""
     gd = make_game(cfg)
     pack = RenderPack(gd, cfg)
     init, step = make_fast_fns(gd, cfg, pack, refill_bucket=2)
@@ -271,7 +275,7 @@ def check_fast_path_matches_inline(cfg, policy):
     def fields(state):
         return {
             k: v for k, v in convert.state_to_numpy(state).items()
-            if k not in _ACTION_FIELDS
+            if k not in _ACTION_FIELDS and k not in carried
         }
 
     assert_fields_equal(fields(inline), fields(fs.state), "at cold start")

@@ -282,12 +282,16 @@ import procgen_torch.games.coinrun, procgen_torch.games.leaper
 import procgen_torch.games.ninja, procgen_torch.games.jumper
 import procgen_torch.games.caveflyer, procgen_torch.games.dodgeball
 import procgen_torch.games.bigfish, procgen_torch.games.climber, procgen_torch.games.heist
+import procgen_torch.games.fruitbot, procgen_torch.games.plunder
+import procgen_torch.games.starpilot, procgen_torch.games.bossfight
 import procgen_torch.engine.rand_util, procgen_torch.engine.levelgen.roomgen
 import procgen_torch.render.assets, procgen_torch.bench.synth_assets
+import procgen_torch.utils.cppsort
 from procgen_torch.games import available_games
 assert available_games() == [
-    "bigfish", "caveflyer", "chaser", "climber", "coinrun", "dodgeball", "heist", "jumper",
-    "leaper", "maze", "miner", "ninja"], available_games()
+    "bigfish", "bossfight", "caveflyer", "chaser", "climber", "coinrun", "dodgeball",
+    "fruitbot", "heist", "jumper", "leaper", "maze", "miner", "ninja", "plunder",
+    "starpilot"], available_games()
 import procgen_torch
 for m in pkgutil.walk_packages(procgen_torch.__path__, "procgen_torch."):
     importlib.import_module(m.name)

@@ -1,4 +1,6 @@
-"""The port's renderer against procgen_tpu.render.fast2 on maze states.
+"""The port's renderer against procgen_tpu.render.fast2 on maze states
+(and the free rotation of caveflyer and dodgeball, and starpilot's
+scrolling background).
 
 RenderPack arrays are equal array for array.  States come from the JAX
 package (reset + random steps) and are converted with procgen_torch.convert;
@@ -30,6 +32,7 @@ from procgen_torch.config import DistributionMode, EnvConfig
 from procgen_torch.games import make_game
 from procgen_torch.render import fast2
 from procgen_torch.render.pack import RenderPack
+from test_torch_assets import asset_root_fixture
 
 torch.set_num_threads(1)
 
@@ -149,3 +152,53 @@ def test_free_rotation_matches_reference(game):
     np.testing.assert_array_equal(np.where(box, 0, want), np.where(box, 0, got))
     ulps = np.abs(want.view(np.int32).astype(np.int64) - got.view(np.int32).astype(np.int64))
     assert ulps[box].max() <= 2, ulps[box].max()
+
+
+synth_root = asset_root_fixture()
+
+
+@pytest.mark.parametrize("use_backgrounds", [True, False])
+def test_dynamic_bg_pass_matches_reference(synth_root, use_backgrounds):
+    """Starpilot's scrolling background: ``fast2.dynamic_bg_pass`` (direct
+    gathers) against the JAX pass (two one-hot bf16 products), float32
+    canvases bit for bit, on 64 envs at random times (0-1000 steps, the
+    tile edges of the first frames and past the strip's end) over
+    random 64x64 background mips, every texel distinct in most rows; and
+    ``render_static2``'s cached mip over the pack's backgrounds (each
+    selected and resampled from its own size)."""
+    from test_torch_coinrun import JaxCarrier, _port_reset
+
+    n = 64
+    kw = dict(env_name="starpilot", num_envs=n, rand_seed=5, use_backgrounds=use_backgrounds)
+    jcfg = JConfig(distribution_mode=JMode.hard, **kw)
+    cfg = EnvConfig(distribution_mode=DistributionMode.hard, **kw)
+    jgd, gd = j_make_game(jcfg), make_game(cfg)
+    jpack, pack = JPack(jgd, jcfg), RenderPack(gd, cfg)
+    from procgen_torch.state import seeded_template
+
+    state = _port_reset(gd, cfg, pack, seeded_template(gd, cfg, n, device="cpu"),
+                        torch.ones(n, dtype=torch.bool))
+    jstate = JaxCarrier(jgd, jcfg)(state)
+    np.testing.assert_array_equal(
+        np.asarray(j_fast2.render_static2(jgd, jcfg, jstate, jpack)),
+        fast2.render_static2(gd, cfg, state, pack).numpy())
+    assert len(np.unique(state.background_index.numpy())) > 1
+
+    rs = np.random.RandomState(13)
+    t = rs.randint(0, 1001, size=n).astype(np.int32)  # an episode's 1000 steps
+    # the tile edges of the first frames, and past the end of the strip
+    t[:12] = [0, 1, 2, 3, 59, 60, 61, 239, 240, 241, 4320, 5000]
+    mips = rs.randint(0, 256, size=(n, 64, 64, 3)).astype(np.uint8)
+    state = state.replace(cur_time=torch.as_tensor(t), static_layer=torch.as_tensor(mips))
+    jstate = JaxCarrier(jgd, jcfg)(state)
+    want = jax.jit(lambda s: j_fast2.dynamic_bg_pass(jgd, jcfg, s, j_fast2.get_tables(jgd, jcfg, jpack)))(jstate)
+    got = fast2.dynamic_bg_pass(gd, cfg, state, fast2.get_tables(gd, cfg, pack, "cpu"))
+    want = np.asarray(want)
+    assert want.dtype == np.float32 and got.dtype == torch.float32
+    np.testing.assert_array_equal(want.view(np.int32), got.numpy().view(np.int32))
+    if use_backgrounds:
+        # the strip covers the frame for an episode, and runs out by t = 4320
+        assert (got.numpy()[t <= 1000] > 0).mean() > 0.98
+        assert not got[t >= 4320].any()
+    else:
+        assert not got.any()

@@ -1,11 +1,10 @@
 """procgen_torch's trig against the host libm (glibc, through ctypes): the
 functions the reference binary links.
 
-* ``fmath.face_rotation`` (a 16-entry table keyed on the sign bit and
-  zero-ness of each component) against ``-atan2f(dy, dx) + offset`` for
-  every key, both IEEE zeros included, at the offsets the ported games use
-  (0 and caveflyer's -pi/2), for axis-aligned inputs of any magnitude and
-  the 8 unit directions;
+* ``fmath.face_rotation`` (``-atan2f(dy, dx) + offset`` through
+  ``fmath.atan2f``) against glibc at the offsets the ported games use (0
+  and -pi/2), for axis-aligned inputs of any magnitude with both IEEE
+  zeros, the 8 unit directions and random velocities;
 * ``fmath.dsincos`` (fdlibm's algorithm as eager float64 ops) against
   glibc's double ``sin``/``cos``: narrowed to float32 (the fast mode) bit
   for bit on 2^17 random angles in [-300, 300] (the range caveflyer's ship
@@ -13,7 +12,11 @@ functions the reference binary links.
   reduction (floats next to multiples of pi/2) and the kernels' branch
   points; in float64 (parity mode) within 1 ulp;
 * ninja's star table against glibc's ``cos``/``sin`` of the float64 angle,
-  narrowed.  The table is unchanged from its former numpy form.
+  narrowed.  The table is unchanged from its former numpy form;
+* ``fmath.atan2f`` (glibc's float atan2f as eager float32 ops) against
+  glibc on random and special pairs, bit for bit;
+* ``fmath.sqrt32`` against the IEEE float32 square root (numpy's), bit for
+  bit: torch's own CPU ``sqrt`` is not correctly rounded.
 """
 
 import numpy as np
@@ -57,12 +60,14 @@ def test_face_rotation_matches_glibc(offset):
         for zy in (0.0, -0.0):
             dx.append(zx)
             dy.append(zy)
-    dx, dy = np.float32(dx), np.float32(dy)
-    got = fm.face_rotation(_Cfg(False), torch.as_tensor(dx), torch.as_tensor(dy), offset)
+    rs = np.random.RandomState(11)  # starpilot-like velocities
+    dx = np.concatenate([np.float32(dx), np.float32(rs.uniform(-1, 1, 4096) * 0.05)])
+    dy = np.concatenate([np.float32(dy), np.float32(rs.uniform(-1, 1, 4096) * 0.05)])
+    got = fm.face_rotation(torch.as_tensor(dx), torch.as_tensor(dy), offset)
     want = -fm.atan2f_libm(dy, dx) + np.float32(offset)
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
     # the sign of a zero component matters: atan2f(-0.0, -1) = -pi
-    flip = fm.face_rotation(_Cfg(True), torch.tensor([-1.0, -1.0]), torch.tensor([0.0, -0.0]))
+    flip = fm.face_rotation(torch.tensor([-1.0, -1.0]), torch.tensor([0.0, -0.0]))
     assert float(flip[0]) == -PI and float(flip[1]) == PI
 
 
@@ -102,3 +107,41 @@ def test_ninja_star_table_matches_glibc():
     wide = theta.astype(np.float64)
     old = np.stack([np.cos(wide), np.sin(wide)], 1).astype(np.float32)
     np.testing.assert_array_equal(_bits(table), _bits(old))
+
+
+def test_atan2f_matches_glibc():
+    """fmath.atan2f (starpilot's enemy bullets face their continuous
+    velocity) against glibc's atan2f bit for bit: 3 x 2^16 random pairs at
+    three spreads of magnitude, starpilot-like velocities, and every pair of
+    signed zeros, ones, tiny and huge values and exact ratios that pick each
+    branch of the argument reduction."""
+    rs = np.random.RandomState(7)
+    n = 1 << 16
+    ys, xs = [], []
+    for spread in (0.0, 20.0, 80.0):
+        for out in (ys, xs):
+            out.append(rs.standard_normal(n) * np.exp(rs.uniform(-spread, spread, n)))
+    ys.append(rs.uniform(-16, 16, n) * 0.05)
+    xs.append(rs.uniform(-16, 16, n) * 0.05)
+    special = np.float32([0.0, -0.0, 1.0, -1.0, 0.4375, 0.6875, 1.1875, 2.4375, 7.0 / 16,
+                          1e-30, -1e-30, 3e38, -3e38, 0.5, 2.0, 1.5, 0.8, -0.8])
+    sy, sx = np.meshgrid(special, special)
+    y = np.concatenate([np.float32(v) for v in ys] + [sy.ravel()])
+    x = np.concatenate([np.float32(v) for v in xs] + [sx.ravel()])
+    got = fm.atan2f(torch.as_tensor(y), torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(fm.atan2f_libm(y, x)))
+
+
+def test_sqrt32_is_correctly_rounded():
+    """fmath.sqrt32 (the sub-step count's and starpilot's aimed bullets'
+    square roots) against numpy's float32 sqrt (the IEEE square root),
+    bit for bit, over 2^20 floats spread over 80 binades, perfect squares
+    and their neighbours."""
+    rs = np.random.RandomState(3)
+    x = np.float32(np.exp(rs.uniform(-40, 40, 1 << 20)))
+    k = np.float32(np.arange(1, 4096)) / np.float32(16)
+    sq = np.float32(k * k)
+    x = np.concatenate([x, sq, np.nextafter(sq, np.float32(0)), np.nextafter(sq, np.float32(1e9)),
+                        np.float32([0.0, 1e-45, 3e38])])
+    got = fm.sqrt32(torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(np.sqrt(x)))
