@@ -20,8 +20,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (must be equal), and the count of angles where torch's own float64
    cos/sin, narrowed, differ between the two; glibc's ``atan2f`` as float32
    ops (``fmath.atan2f``, starpilot's aimed bullets) and the correctly
-   rounded square root (``fmath.sqrt32``) on 2^22 inputs, card against CPU
-   (must be equal);
+   rounded square roots (``fmath.sqrt32``; ``fmath.dsqrt`` in parity mode,
+   float64, also against numpy's IEEE root) on 2^22 inputs, card against
+   CPU (must be equal);
    Then the same over a pack atlas: bigfish's, from a synthetic asset root
    whose agent sprite has fractional alpha (1-254), at the records of a
    few steps of 512 envs: bitwise equal;
@@ -76,11 +77,27 @@ Phases (each prints one JSON line; any failure exits non-zero):
       timeline, bossfight's barrier sweep), torch ops per refill
       from one
       profiled refill at the bucket size, and device time by kernel from a
-      short profiler window;
+      profiler window of 5 steps (leaper's 2);
 5. the gym3 surface in its default configuration (PNG assets):
    ``ProcgenTorchEnv(..., device="cuda")`` on miner and
    ``ProcgenTorchEnv(64, "bigfish")`` (the card by default), a few
-   act/observe rounds each with the state on the card.
+   act/observe rounds each with the state on the card;
+6. ``state``: for all 16 games (hard, PNG assets, 8 envs), ``get_state``
+   on the card after 20 random steps equals the CPU env's bytes for the
+   same seed and actions; ``set_state`` into a fresh card env with another
+   seed, 20 more steps beside the CPU env's uninterrupted run: rewards,
+   firsts and frames equal at every step, and the bytes equal at the end;
+   the blob size per env; then ``get_state`` and ``set_state`` timed once
+   at 4096 envs on maze hard.  The CPU envs of this phase and the next run
+   in one spawned worker process, beside the card's half;
+7. ``render_mode``: ``render_mode="rgb_array"`` at 4 envs for maze, miner,
+   coinrun, jumper, starpilot and caveflyer, 5 steps: the card's ms per
+   ``get_info`` (the info-frame batch), and ``info["rgb"]`` of the last
+   step (4, 512, 512, 3) uint8 and equal on the card and the CPU;
+8. ``oracle``: for all 16 games, 16 envs after 12 random steps on the card,
+   ``oracle.oracle_obs`` and ``oracle.oracle_static`` (plain torch) equal
+   ``render_frames2`` (the compositor kernel) and ``render_static2`` on the
+   card, and the oracle on the CPU, bit for bit.
 
 The asset root: ``PROCGEN_TORCH_ASSET_ROOT`` when it is set (the script
 prints which root it used), else a synthetic root
@@ -130,9 +147,9 @@ from procgen_torch.games.leaper import PREROLL_SPAN
 from procgen_torch.games.miner import SWEEP_SPAN
 from procgen_torch.games.starpilot import SPAWNERS_SPAN
 from procgen_torch.parallel.fast import REFILL_SPAN, make_fast_fns
-from procgen_torch.render import assets, compositor, fast2
+from procgen_torch.render import assets, compositor, fast2, oracle
 from procgen_torch.render.pack import RenderPack
-from procgen_torch.state import seeded_template
+from procgen_torch.state import seeded_template, tree_map
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and f32 rate
 # outside the tensor cores, at the 700 W power limit.
@@ -403,15 +420,24 @@ def phase_trig(dev):
     y[:8] = -y[:8]
     s2 = x * x + y * y
     checks = {}
-    for name, fn, args in (("fmath.atan2f", fm.atan2f, (y, x)), ("fmath.sqrt32", fm.sqrt32, (s2,))):
+    parity = types.SimpleNamespace(parity_mode=True)
+    for name, fn, args in (("fmath.atan2f", fm.atan2f, (y, x)), ("fmath.sqrt32", fm.sqrt32, (s2,)),
+                           ("fmath.dsqrt", lambda v: fm.dsqrt(parity, v), (s2,))):
         want = fn(*args)
         got = fn(*(a.to(dev) for a in args)).cpu()
-        checks[name] = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        bits = torch.int64 if want.dtype == torch.float64 else torch.int32
+        checks[name] = int((got.view(bits) != want.view(bits)).sum())
+    # parity mode's double root against the IEEE one (numpy's float64 sqrt)
+    ieee = torch.from_numpy(np.sqrt(s2.double().numpy()))
+    dsqrt_vs_ieee = int((fm.dsqrt(parity, s2.to(dev)).cpu().view(torch.int64)
+                         != ieee.view(torch.int64)).sum())
     torch_sqrt_differ = int((torch.sqrt(s2).view(torch.int32)
                              != torch.sqrt(s2.to(dev)).cpu().view(torch.int32)).sum())
-    if any(checks.values()):
-        raise AssertionError(f"card results differ from the CPU's: {checks}")
+    if any(checks.values()) or dsqrt_vs_ieee:
+        raise AssertionError(f"card results differ from the CPU's: {checks}, "
+                             f"dsqrt against the IEEE root: {dsqrt_vs_ieee}")
     emit("trig_atan2f_sqrt", inputs=n, card_vs_cpu_differ=checks,
+         dsqrt_card_vs_ieee_differ=dsqrt_vs_ieee,
          torch_float32_sqrt_card_vs_cpu_differ=torch_sqrt_differ)
 
 
@@ -687,7 +713,9 @@ def phase_timing(run, dev):
             extra[f"{name}_profiled_share_of_refill"] = rp["ns"][span] / rp["ns"][REFILL_SPAN]
             extra[f"torch_ops_per_{name}"] = rp["ops"][span] / rp["count"][span]
 
-    window = 5
+    # leaper's window is cut to 2 steps (about one refill in 2.5, each of
+    # about 300,000 profiled ops) to keep the script's time
+    window = 2 if run.game == "leaper" else 5
     box = [fs]
 
     def steps_and_frames():
@@ -764,6 +792,182 @@ def phase_env(dev):
              state_device=str(env.state.grid.device), infos=len(env.get_info()))
 
 
+GAMES = tuple(sorted(game for game, _, _, _ in PATHS))
+STATE_ENVS, STATE_STEPS, STATE_TIMED_ENVS = 8, 20, 4096
+RENDER_MODE_GAMES = ("maze", "miner", "coinrun", "jumper", "starpilot", "caveflyer")
+# torch threads of the worker process that computes the CPU references
+CPU_WORKER_THREADS = 4
+
+
+def _acts(rs, n):
+    return rs.randint(0, 15, size=n).astype(np.int32)
+
+
+def cpu_state_reference(game):
+    """The CPU half of the state phase for one game, in the worker process:
+    the bytes after 20 steps (action seed 2), then 20 more steps (seed 3)
+    with each step's rewards, firsts and frames, and the bytes at the end."""
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    env = ProcgenTorchEnv(STATE_ENVS, game, rand_seed=5, device="cpu", distribution_mode="hard",
+                          render=False)
+    rs = np.random.RandomState(2)
+    for _ in range(STATE_STEPS):
+        env.act(_acts(rs, STATE_ENVS))
+    blobs = env.get_state()
+    rs = np.random.RandomState(3)
+    steps = []
+    for _ in range(STATE_STEPS):
+        env.act(_acts(rs, STATE_ENVS))
+        steps.append((env.state.reward.numpy(), env.state.done.numpy(),
+                      env.render_fn(env.state).numpy()))
+    return blobs, steps, env.get_state()
+
+
+def cpu_info_frame(game):
+    """The CPU half of the render_mode phase for one game, in the worker
+    process: the info frames after 5 steps (action seed 4)."""
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    env = ProcgenTorchEnv(4, game, rand_seed=5, device="cpu", distribution_mode="hard",
+                          render=False, render_mode="rgb_array")
+    rs = np.random.RandomState(4)
+    for _ in range(5):
+        env.act(_acts(rs, 4))
+    return np.stack([info["rgb"] for info in env.get_info()])
+
+
+def cpu_worker():
+    """One spawned process for the CPU references of the state and
+    render_mode phases, so that they run beside the card's half (the asset
+    root reaches it through the environment)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+
+
+def phase_state(dev, worker):
+    """get_state/set_state on every game (PNG assets, hard): the card's
+    bytes after 20 steps equal the CPU env's for the same seed and actions;
+    a fresh card env with another seed restores them and takes 20 more
+    steps beside the CPU env's uninterrupted run (the card's own, by the
+    first check and the card_vs_cpu phases): rewards, firsts and frames
+    equal at every step, the bytes equal at the end.  The CPU env runs in
+    the worker process.  Then both calls are timed at the main path's
+    width on maze."""
+    refs = {game: worker.submit(cpu_state_reference, game) for game in GAMES}
+    sizes, seconds = {}, {}
+    t_phase = time.perf_counter()
+    for game in GAMES:
+        t0 = time.perf_counter()
+        kw = dict(distribution_mode="hard", render=False)
+        card = ProcgenTorchEnv(STATE_ENVS, game, rand_seed=5, device=dev, **kw)
+        rs = np.random.RandomState(2)
+        for _ in range(STATE_STEPS):
+            card.act(_acts(rs, STATE_ENVS))
+        blobs = card.get_state()
+        restored = ProcgenTorchEnv(STATE_ENVS, game, rand_seed=99, device=dev, **kw)
+        restored.set_state(blobs)
+        rs = np.random.RandomState(3)
+        got = []
+        for _ in range(STATE_STEPS):
+            restored.act(_acts(rs, STATE_ENVS))
+            s = restored.state
+            got.append((s.reward.cpu().numpy(), s.done.cpu().numpy(),
+                        restored.render_fn(s).cpu().numpy()))
+        final = restored.get_state()
+        seconds[game] = time.perf_counter() - t0
+        cpu_blobs, want, cpu_final = refs[game].result()
+        if blobs != cpu_blobs:
+            raise AssertionError(f"{game}: get_state on the card differs from the CPU's")
+        for t, (g, w) in enumerate(zip(got, want)):
+            if not (np.array_equal(g[0].view(np.int32), w[0].view(np.int32))
+                    and np.array_equal(g[1], w[1]) and np.array_equal(g[2], w[2])):
+                raise AssertionError(f"{game}: the restored env differs at step {t}")
+        if final != cpu_final:
+            raise AssertionError(f"{game}: the bytes differ after the replay")
+        sizes[game] = [min(map(len, blobs)), max(map(len, blobs))]
+    games_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    env = ProcgenTorchEnv(STATE_TIMED_ENVS, "maze", rand_seed=5, device=dev,
+                          distribution_mode="hard")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blobs = env.get_state()
+    get_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    env.set_state(blobs)
+    torch.cuda.synchronize()
+    set_s = time.perf_counter() - t0
+    emit("state", games=len(GAMES), envs=STATE_ENVS, steps=[STATE_STEPS, STATE_STEPS],
+         card_vs_cpu_bytes_equal=True, resumed_bitwise=True,
+         blob_bytes_per_env_min_max=sizes, card_seconds_per_game=seconds,
+         games_seconds=games_s, timed_game="maze", timed_envs=STATE_TIMED_ENVS,
+         timed_env_build_s=build_s,
+         get_state_ms_per_env=get_s * 1e3 / STATE_TIMED_ENVS,
+         set_state_ms_per_env=set_s * 1e3 / STATE_TIMED_ENVS,
+         blob_bytes_total=sum(len(b) for b in blobs))
+
+
+def phase_render_mode(dev, worker):
+    """render_mode="rgb_array": the card's ms per get_info (the 512x512
+    info-frame batch) over 5 steps, and the last step's frames equal on the
+    card and the CPU (the CPU env runs in the worker process)."""
+    refs = {game: worker.submit(cpu_info_frame, game) for game in RENDER_MODE_GAMES}
+    out = {}
+    for game in RENDER_MODE_GAMES:
+        env = ProcgenTorchEnv(4, game, rand_seed=5, device=dev, distribution_mode="hard",
+                              render=False, render_mode="rgb_array")
+        rs = np.random.RandomState(4)
+        card_s = 0.0
+        for _ in range(5):
+            env.act(_acts(rs, 4))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            infos = env.get_info()
+            card_s += time.perf_counter() - t0
+        got = np.stack([info["rgb"] for info in infos])
+        if got.shape != (4, 512, 512, 3) or got.dtype != np.uint8:
+            raise AssertionError(f"{game}: info rgb is {got.shape} {got.dtype}")
+        if not np.array_equal(got, refs[game].result()):
+            raise AssertionError(f"{game}: the card's info frame differs from the CPU's")
+        out[game] = dict(get_info_ms=card_s * 1e3 / 5, nonzero_pixel_share=float((got > 0).mean()))
+    emit("render_mode", envs=4, steps=5, shape=[4, 512, 512, 3], card_vs_cpu_bitwise=True,
+         per_game=out)
+
+
+def phase_oracle(dev):
+    """The observation oracle (plain torch, record by record) against the
+    compositor kernel's frames and the static bake on the card, and against
+    itself on the CPU: bit for bit, every game."""
+    out, seconds = {}, {}
+    for game in GAMES:
+        t0 = time.perf_counter()
+        env = ProcgenTorchEnv(16, game, rand_seed=5, device=dev, distribution_mode="hard",
+                              render=False)
+        rs = np.random.RandomState(6)
+        for _ in range(12):
+            env.act(_acts(rs, 16))
+        gd, cfg, pack, state = env.gd, env.cfg, env.pack, env.state
+        launched = compositor.launches
+        frames = fast2.render_frames2(gd, cfg, state, pack)
+        if compositor.launches == launched:
+            raise AssertionError(f"{game}: render_frames2 did not launch the kernel")
+        static = fast2.render_static2(gd, cfg, state, pack)
+        obs = oracle.oracle_obs(gd, cfg, state, pack)
+        st = oracle.oracle_static(gd, cfg, state, pack)
+        host = tree_map(lambda t: t.cpu(), state)
+        if not (torch.equal(obs, frames) and torch.equal(st, static)):
+            raise AssertionError(f"{game}: the oracle differs from the card's frames")
+        if not (torch.equal(oracle.oracle_obs(gd, cfg, host, pack), obs.cpu())
+                and torch.equal(oracle.oracle_static(gd, cfg, host, pack), st.cpu())):
+            raise AssertionError(f"{game}: the CPU oracle differs from the card's")
+        out[game] = int(state.ents.alive.sum(1).max())
+        seconds[game] = time.perf_counter() - t0
+    emit("oracle", games=len(GAMES), envs=16, steps=12, bitwise_equal=True,
+         max_live_entities=out, seconds_per_game=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -797,6 +1001,10 @@ def main() -> int:
         for game, mode in PNG_CARD_VS_CPU:
             phase_card_vs_cpu(dev, game, mode, generated=False)
         phase_env(dev)
+        with cpu_worker() as worker:
+            phase_state(dev, worker)
+            phase_render_mode(dev, worker)
+        phase_oracle(dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

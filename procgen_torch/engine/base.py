@@ -172,6 +172,30 @@ class GameDef:
         ``dynamic_bg_rect`` (render/fast2.dynamic_bg_pass)."""
         return type(self).dynamic_bg_rect is not GameDef.dynamic_bg_rect
 
+    def paint_dynamic_background(self, cfg, states, out, SX, SY, tables):
+        """The per-step background of the direct render path
+        (render/renderer.render_env) at any resolution: the tiled blit of
+        ``dynamic_bg_rect`` sampled from the full background image (the
+        reference package's ``GameDef.dynamic_background`` painter;
+        starpilot.cpp:110-127).  ``out`` is the f32 canvas (N, res, res, 3),
+        ``SX``/``SY`` the pixel centres in 64-pixel units, (1, 1, res) and
+        (1, res, 1), ``tables`` the renderer's device copies of the pack
+        (``bg_atlas``, ``bg_dims``)."""
+        if not cfg.use_backgrounds:
+            return out
+        x0, tile_w, w_total, y0, h = (v[:, None, None] for v in self.dynamic_bg_rect(cfg, states))
+        u_raw = (SX - x0) / tile_w
+        u = u_raw - torch.floor(u_raw)
+        v = (SY - y0) / h
+        inside = (SX >= x0) & (SX < x0 + w_total) & (v >= 0) & (v < 1)
+        bgi = states.background_index.to(torch.int64)
+        dims = tables.bg_dims[bgi]
+        bw, bh = dims[:, 0, None, None], dims[:, 1, None, None]
+        su = torch.minimum(torch.clamp((u * bw.to(F32)).to(torch.int32), min=0), bw - 1)
+        sv = torch.minimum(torch.clamp((v * bh.to(F32)).to(torch.int32), min=0), bh - 1)
+        col = tables.bg_atlas[bgi[:, None, None], sv.to(torch.int64), su.to(torch.int64)].to(F32)
+        return torch.where(inside[..., None], col, out)
+
     def has_hud(self, cfg) -> bool:
         """True for games with screen-space overlays."""
         return (
@@ -181,6 +205,16 @@ class GameDef:
 
     # ---- per-game state extras ----
     def init_extra(self, cfg, num_envs: int, device) -> dict:
+        return {}
+
+    # ---- state codec hooks (utils/serialize.py) ----
+    def serialize_extra(self, w, s, i) -> None:
+        """Write env ``i``'s game fields (the game's own serialize) from the
+        host-side flat dict ``s`` (``s["extra.maze_dim"][i]``)."""
+
+    def deserialize_extra(self, r) -> dict:
+        """Read them back: {extra key: per-env value}; keys left out keep
+        the template state's values."""
         return {}
 
     # ---- virtuals (bag.h:34-55) ----

@@ -89,8 +89,12 @@ def finish_step(cfg, state: EnvState) -> EnvState:
 
 def step_env(gd, cfg, state: EnvState, action) -> EnvState:
     """Game::step (game.cpp:120-155) with inline masked auto-reset: when
-    done, the returned state already holds the next level."""
+    done, the returned state already holds the next level.  The reset runs
+    only on steps where some env finished (one host read per step): a
+    reset is levelgen for the whole batch, and leaper's pre-rolls 300
+    physics steps."""
     state = step_env_no_reset(gd, cfg, state, action)
-    reset_state = reset_env(gd, cfg, state)
-    state = tree_select(state.done, reset_state, state)
+    if bool(state.done.any()):
+        reset_state = reset_env(gd, cfg, state)
+        state = tree_select(state.done, reset_state, state)
     return finish_step(cfg, state)

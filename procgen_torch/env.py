@@ -7,7 +7,10 @@
 functions (``reset_fn`` / ``step_fn`` / ``render_fn``) with the inline
 auto-reset: a finished env's next level is generated in the same step.
 High-throughput loops use the level queue instead
-(procgen_torch/parallel/fast.py).
+(procgen_torch/parallel/fast.py).  ``get_state``/``set_state`` speak the
+reference's byte layout (procgen_torch/utils/serialize.py), and
+``render_mode="rgb_array"`` adds a 512x512 ``info["rgb"]`` frame
+(render/renderer.render_env).
 
 Construction-time seeding follows vecgame.cpp:301-314: a master MT19937
 seeded with ``rand_seed`` deals one full-width randint per env to seed that
@@ -30,8 +33,9 @@ from procgen_torch.engine.game import reset_env, step_env
 from procgen_torch.games import make_game
 from procgen_torch.render.fast2 import render_frames2, render_static2
 from procgen_torch.render.pack import RenderPack
-from procgen_torch.render.renderer import update_view_params
-from procgen_torch.state import EnvState, init_state_template
+from procgen_torch.render.renderer import render_env, update_view_params
+from procgen_torch.state import EnvState, init_state_template, tree_map
+from procgen_torch.utils import serialize as ser
 
 DISTRIBUTION_MODE_NAMES = {
     "easy": DistributionMode.easy,
@@ -41,10 +45,9 @@ DISTRIBUTION_MODE_NAMES = {
     "exploration": DistributionMode.exploration,
 }
 
-_NO_STATE = (
-    "procgen_torch: get_state/set_state are not ported yet (ROADMAP A9, "
-    "the reference-layout state codec)"
-)
+# envs per render_env call of the render_mode frame: a 1024x1024 f32
+# canvas is 12.6 MB per env, and the entity pass holds a few such tensors
+HIRES_CHUNK = 8
 
 
 def create_random_seed() -> int:
@@ -78,11 +81,6 @@ class ProcgenTorchEnv:
         device="cuda",
         _level_rng_seeds: Optional[list[int]] = None,
     ):
-        if render_mode in ("rgb_array", "human"):
-            raise NotImplementedError(
-                "procgen_torch: render_mode needs the 512x512 gather renderer "
-                "(render_env), which is not ported yet (ROADMAP A11)"
-            )
         if isinstance(distribution_mode, str):
             distribution_mode = DISTRIBUTION_MODE_NAMES[distribution_mode]
         if rand_seed is None:
@@ -108,6 +106,9 @@ class ProcgenTorchEnv:
         self.gd = make_game(cfg)
         self.pack = RenderPack(self.gd, cfg)
         self._do_render = render
+        # render_human path: the hi-res info "rgb" (vecgame.cpp:270-282,
+        # 367-375)
+        self._render_mode = render_mode
         self._level_rng_seeds = _level_rng_seeds
         self.state = self.reset_fn(self._initial_state(rand_seed))
         self._obs = self.render_fn(self.state) if render else None
@@ -159,6 +160,22 @@ class ProcgenTorchEnv:
         """(N, 64, 64, 3) uint8 frames on the env's device."""
         return render_frames2(self.gd, self.cfg, state, self.pack)
 
+    def render_hires_fn(self, state: EnvState) -> torch.Tensor:
+        """(N, 512, 512, 3) uint8 info frames on the env's device.  The
+        reference paints the 512x512 frame with QPainter antialiasing; here
+        a 2x supersample (render_env at 1024, nearest) is box-filtered with
+        rounding, ``(a + b + c + d + 2) // 4``, as the reference package
+        does (in uint16 there, the same values).  Envs go through in chunks
+        of ``HIRES_CHUNK``."""
+        out = []
+        for a in range(0, state.num_envs, HIRES_CHUNK):
+            part = tree_map(lambda t: t[a:a + HIRES_CHUNK], state)
+            big = render_env(self.gd, self.cfg, part, self.pack, res=1024).to(torch.int32)
+            pooled = (big[:, 0::2, 0::2] + big[:, 1::2, 0::2]
+                      + big[:, 0::2, 1::2] + big[:, 1::2, 1::2] + 2) // 4
+            out.append(pooled.to(torch.uint8))
+        return torch.cat(out)
+
     # ------------------------------------------------------------------
     # gym3-style stateful API (reference env.py / gym3.libenv.CEnv)
     # ------------------------------------------------------------------
@@ -179,7 +196,7 @@ class ProcgenTorchEnv:
         prev_seed = self.state.prev_level_seed.cpu().numpy()
         prev_complete = self.state.level_complete.cpu().numpy()
         seed = self.state.current_level_seed.cpu().numpy()
-        return [
+        infos = [
             {
                 "prev_level_seed": int(prev_seed[i]),
                 "prev_level_complete": int(prev_complete[i]),
@@ -187,15 +204,31 @@ class ProcgenTorchEnv:
             }
             for i in range(self.num)
         ]
+        if self._render_mode in ("rgb_array", "human"):
+            hires = self.render_hires_fn(self.state).cpu().numpy()
+            for i in range(self.num):
+                infos[i]["rgb"] = hires[i]
+        return infos
 
-    def get_state(self):
-        raise NotImplementedError(_NO_STATE)
+    # ------------------------------------------------------------------
+    # state save/restore (env.py:140-153 / vecgame.cpp:437-457)
+    # ------------------------------------------------------------------
+
+    def get_state(self) -> list[bytes]:
+        """Per-env reference-layout bytes."""
+        return ser.get_state(self.gd, self.cfg, self.state)
 
     def set_state(self, blobs) -> None:
-        raise NotImplementedError(_NO_STATE)
+        """Restore every env from ``get_state`` bytes (of either package),
+        then re-render the static layer and the observation, as
+        vecgame.cpp:455 re-observes."""
+        assert len(blobs) == self.num
+        state = ser.set_state(self.gd, self.cfg, self.state, blobs)
+        self.state = self._refresh_static(state, force=True)
+        self._obs = self.render_fn(self.state) if self._do_render else None
 
     def callmethod(self, method: str, *args):
-        raise NotImplementedError(_NO_STATE)
+        return _callmethod(self, method, args)
 
     @property
     def ob_space(self):
@@ -278,22 +311,29 @@ class ProcgenJointEnv:
         for j, e in enumerate(self.envs):
             e.act(ac[j::k])
 
-    def get_info(self):
+    def _interleave(self, per_game):
+        """Per-game lists back to env order: slot ``s`` of game ``j`` is
+        env ``s * k + j``."""
         k = len(self.envs)
         out = [None] * self.num
-        for j, e in enumerate(self.envs):
-            for s, info in enumerate(e.get_info()):
-                out[s * k + j] = info
+        for j, items in enumerate(per_game):
+            out[j::k] = items
         return out
 
+    def get_info(self):
+        return self._interleave([e.get_info() for e in self.envs])
+
     def get_state(self):
-        raise NotImplementedError(_NO_STATE)
+        """Per-env bytes in reference env order."""
+        return self._interleave([e.get_state() for e in self.envs])
 
     def set_state(self, blobs) -> None:
-        raise NotImplementedError(_NO_STATE)
+        k = len(self.envs)
+        for j, e in enumerate(self.envs):
+            e.set_state(blobs[j::k])
 
     def callmethod(self, method: str, *args):
-        raise NotImplementedError(_NO_STATE)
+        return _callmethod(self, method, args)
 
     @property
     def ob_space(self):
@@ -302,6 +342,16 @@ class ProcgenJointEnv:
     @property
     def ac_space(self):
         return self.envs[0].ac_space
+
+
+def _callmethod(env, method: str, args):
+    """gym3's callmethod surface for get_state/set_state."""
+    if method == "get_state":
+        return env.get_state()
+    if method == "set_state":
+        env.set_state(args[0])
+        return None
+    raise AttributeError(method)
 
 
 def make_procgen_env(num: int, env_name: str = "coinrun", **kwargs):

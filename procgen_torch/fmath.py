@@ -362,13 +362,60 @@ def sqrt32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x64 > hi * hi, up, torch.where(x64 < lo * lo, dn, r))
 
 
+def _split(a: torch.Tensor):
+    """Veltkamp's split of a float64 into two halves of at most 26
+    significant bits each, ``a == hi + lo`` exactly."""
+    c = a * 134217729.0  # 2**27 + 1
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _exceeds_product(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``x > a * b`` decided exactly, for float64 ``x`` within a factor of 2
+    of the product: Dekker's product ``a * b == p + e`` (each eager op
+    rounds once, so the error term is exact) and Sterbenz's lemma (``x -
+    p`` is exact) reduce it to one comparison of two doubles."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    return (x - p) > e
+
+
+def sqrt64(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float64 square root of float32 values (C++
+    ``sqrt(float)``), on the CPU and on the card alike.  Torch's CPU float64
+    ``sqrt`` is an ulp off on about 0.8% of inputs, so its root ``r`` takes
+    one correction step.  The midpoint between ``r`` and its neighbour
+    ``n`` squares to ``r * n + (|n - r| / 2)**2``; ``x - r * n`` is a
+    multiple of four times that last term (``x`` has 24 significant bits),
+    so ``x`` lies above the upper midpoint exactly when ``x > r * n_up`` and
+    below the lower one exactly when ``x <= n_down * r``, both decided
+    exactly by ``_exceeds_product``.  On the CPU torch's root is sometimes
+    far more than an ulp off (one thread's share of a first call), so one
+    Newton step first brings it within 2 ulps, and the correction runs
+    twice.  Zeros (either sign), infinities, NaNs and
+    negative inputs keep ``torch.sqrt``'s result."""
+    x64 = _t(x).to(F64)
+    r0 = torch.sqrt(x64)
+    r = (r0 + x64 / r0) * 0.5
+    for _ in range(2):
+        up = torch.nextafter(r, torch.full_like(r, float("inf")))
+        dn = torch.nextafter(r, torch.zeros_like(r))
+        r = torch.where(
+            _exceeds_product(x64, r, up), up,
+            torch.where(_exceeds_product(x64, dn, r), r, dn),
+        )
+    normal = (x64 > 0) & torch.isfinite(x64)
+    return torch.where(normal, r, r0)
+
+
 def dsqrt(cfg, x: torch.Tensor) -> torch.Tensor:
-    """C++ ``sqrt(float)``: the double overload of a float operand, float64
-    in parity mode (the caller narrows at the store; on the CPU torch's
-    float64 root may be an ulp off, ROADMAP A3), the correctly rounded
-    float32 root otherwise."""
+    """C++ ``sqrt(float)``: the double overload of a float operand, the
+    correctly rounded float64 root in parity mode (the caller narrows at the
+    store), the correctly rounded float32 root otherwise."""
     x = _t(x)
-    return torch.sqrt(x.to(F64)) if cfg.parity_mode else sqrt32(x)
+    return sqrt64(x) if cfg.parity_mode else sqrt32(x)
 
 
 def atan2_wide(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

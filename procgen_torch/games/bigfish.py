@@ -181,5 +181,13 @@ class BigFish(GameDef):
         )
         return state.replace(ents=eo.write_slot(state.ents, eo.AGENT, is_reflected=refl))
 
+    def serialize_extra(self, w, s, i):
+        # bigfish.cpp:108-112
+        w.write_int(s["extra.fish_eaten"][i])
+        w.write_float(s["extra.r_inc"][i])
+
+    def deserialize_extra(self, r):
+        return {"fish_eaten": r.read_int(), "r_inc": r.read_float()}
+
 
 register_game("bigfish")(BigFish)

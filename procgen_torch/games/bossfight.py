@@ -441,6 +441,50 @@ class Bossfight(GameDef):
         ents = eo.append_entities_masked(ents, trail, is_eb)
         return state.replace(ents=ents)
 
+    def serialize_extra(self, w, s, i):
+        # bossfight.cpp:437-462
+        nr = int(s["extra.num_rounds"][i])
+        w.write_vector_int(s["extra.attack_modes"][i][:nr])
+        w.write_int(s["extra.last_fire_time"][i])
+        w.write_int(s["extra.time_to_swap"][i])
+        w.write_int(s["extra.invulnerable_duration"][i])
+        w.write_int(500)  # vulnerable_duration
+        w.write_int(nr)
+        w.write_int(s["extra.round_num"][i])
+        w.write_int(s["extra.round_health"][i])
+        w.write_int(BOSS_VEL_TIMEOUT)
+        for k in ("curr_vel_timeout", "attack_mode", "player_laser_theme", "boss_laser_theme",
+                  "damaged_until_time"):
+            w.write_int(s[f"extra.{k}"][i])
+        w.write_bool(s["extra.shields_are_up"][i])
+        w.write_bool(s["extra.barriers_moves_right"][i])
+        w.write_float(0.1)  # base_fire_prob
+        w.write_float(self.boss_bullet_vel)
+        w.write_float(0.1)  # barrier_vel
+        w.write_float(0.025)  # barrier_spawn_prob
+        for k in ("rand_pct", "rand_fire_pct", "rand_pct_x", "rand_pct_y"):
+            w.write_float(s[f"extra.{k}"][i])
+
+    def deserialize_extra(self, r):
+        modes = r.read_vector_int()
+        out = {"attack_modes": modes + [0] * (MAX_ROUNDS - len(modes))}
+        for k in ("last_fire_time", "time_to_swap", "invulnerable_duration"):
+            out[k] = r.read_int()
+        r.read_int()  # vulnerable_duration
+        for k in ("num_rounds", "round_num", "round_health"):
+            out[k] = r.read_int()
+        r.read_int()  # boss_vel_timeout
+        for k in ("curr_vel_timeout", "attack_mode", "player_laser_theme", "boss_laser_theme",
+                  "damaged_until_time"):
+            out[k] = r.read_int()
+        out["shields_are_up"] = r.read_bool()
+        out["barriers_moves_right"] = r.read_bool()
+        for _ in range(4):
+            r.read_float()  # base_fire_prob, boss_bullet_vel, barrier_vel, barrier_spawn_prob
+        for k in ("rand_pct", "rand_fire_pct", "rand_pct_x", "rand_pct_y"):
+            out[k] = r.read_float()
+        return out
+
 
 def _expand(fields: dict, k: int) -> dict:
     """Candidate fields of ``k`` sources: tensors with a trailing source axis

@@ -350,5 +350,32 @@ class ChaserGame(GameDef):
             level_complete=state.level_complete | full,
         )
 
+    def serialize_extra(self, w, s, i):
+        # chaser.cpp:388-412; free_cells/is_space_vec are derived views of
+        # the grid (cells != MAZE_WALL never change during play)
+        md = self.maze_dim
+        is_space = s["grid"][i][:md, :md].reshape(-1) != MAZE_WALL
+        w.write_vector_int(np.nonzero(is_space)[0])
+        w.write_vector_bool(is_space)
+        w.write_int(EAT_TIMEOUT)
+        w.write_int(EGG_TIMEOUT)
+        w.write_int(s["extra.eat_time"][i])
+        w.write_int(self.total_enemies)
+        w.write_int(s["extra.total_orbs"][i])
+        w.write_int(s["extra.orbs_collected"][i])
+        w.write_int(md)
+
+    def deserialize_extra(self, r):
+        r.read_vector_int()  # free_cells (derived)
+        r.read_vector_bool()  # is_space_vec (derived)
+        r.read_int()  # eat_timeout
+        r.read_int()  # egg_timeout
+        eat_time = r.read_int()
+        r.read_int()  # total_enemies
+        total_orbs = r.read_int()
+        orbs_collected = r.read_int()
+        r.read_int()  # maze_dim
+        return {"eat_time": eat_time, "total_orbs": total_orbs, "orbs_collected": orbs_collected}
+
 
 register_game("chaser")(ChaserGame)

@@ -349,5 +349,23 @@ class Climber(GameDef):
             level_complete=state.level_complete | done_all,
         )
 
+    def serialize_extra(self, w, s, i):
+        # climber.cpp:320-329
+        w.write_bool(s["extra.has_support"][i])
+        w.write_bool(s["extra.facing_right"][i])
+        w.write_int(s["extra.coin_quota"][i])
+        w.write_int(s["extra.coins_collected"][i])
+        w.write_int(s["extra.wall_theme"][i])
+        w.write_float(GRAVITY)
+        w.write_float(AIR_CONTROL)
+
+    def deserialize_extra(self, r):
+        out = {"has_support": r.read_bool(), "facing_right": r.read_bool(),
+               "coin_quota": r.read_int(), "coins_collected": r.read_int(),
+               "wall_theme": r.read_int()}
+        r.read_float()  # gravity
+        r.read_float()  # air_control
+        return out
+
 
 register_game("climber")(Climber)

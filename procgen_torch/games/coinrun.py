@@ -492,5 +492,23 @@ class CoinRun(GameDef):
         extra["last_agent_y"] = ents.y[:, a]
         return state.replace(ents=ents, extra=extra)
 
+    def serialize_extra(self, w, s, i):
+        # coinrun.cpp:500-519
+        w.write_float(s["extra.last_agent_y"][i])
+        w.write_int(s["extra.wall_theme"][i])
+        w.write_bool(s["extra.has_support"][i])
+        w.write_bool(s["extra.facing_right"][i])
+        w.write_bool(s["extra.is_on_crate"][i])
+        w.write_float(GRAVITY)
+        w.write_float(AIR_CONTROL)
+
+    def deserialize_extra(self, r):
+        out = {"last_agent_y": r.read_float(), "wall_theme": r.read_int(),
+               "has_support": r.read_bool(), "facing_right": r.read_bool(),
+               "is_on_crate": r.read_bool()}
+        r.read_float()  # gravity
+        r.read_float()  # air_control
+        return out
+
 
 register_game("coinrun")(CoinRun)

@@ -430,6 +430,23 @@ class Dodgeball(GameDef):
             moving, fm.face_rotation(ents.vx, ents.vy), ents.rotation))
         return state.replace(ents=ents, rng=mt)
 
+    def serialize_extra(self, w, s, i):
+        # dodgeball.cpp:446-465
+        w.write_float(self.min_dim)
+        w.write_float(self.hard_min_dim)
+        w.write_float(self.ball_vscale)
+        w.write_float(self.ball_r)
+        w.write_int(s["extra.last_fire_time"][i])
+        w.write_int(s["extra.num_enemies"][i])
+        w.write_int(50)  # enemy_fire_delay
+
+    def deserialize_extra(self, r):
+        for _ in range(4):
+            r.read_float()  # min_dim, hard_min_dim, ball_vscale, ball_r
+        out = {"last_fire_time": r.read_int(), "num_enemies": r.read_int()}
+        r.read_int()  # enemy_fire_delay
+        return out
+
 
 def _choose_vel(rs, active):
     """choose_vel (dodgeball.cpp:228-240) on a draw source: (rs, vx, vy,

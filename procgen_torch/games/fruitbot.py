@@ -298,5 +298,16 @@ class FruitBot(GameDef):
         extra["last_fire_time"] = torch.where(fire, state.cur_time, extra["last_fire_time"])
         return state.replace(ents=ents, extra=extra)
 
+    def serialize_extra(self, w, s, i):
+        # fruitbot.cpp:266-276
+        w.write_float(5.0)  # min_dim (constant)
+        w.write_float(0.5)  # bullet_vscale (constant)
+        w.write_int(s["extra.last_fire_time"][i])
+
+    def deserialize_extra(self, r):
+        r.read_float()
+        r.read_float()
+        return {"last_fire_time": r.read_int()}
+
 
 register_game("fruitbot")(FruitBot)

@@ -320,5 +320,18 @@ class HeistGame(GameDef):
         )
         return state.replace(ents=eo.write_slot(state.ents, eo.AGENT, rotation=rot))
 
+    def serialize_extra(self, w, s, i):
+        # heist.cpp:211-216
+        nk = int(s["extra.num_keys"][i])
+        w.write_int(nk)
+        w.write_int(s["extra.world_dim"][i])
+        w.write_vector_bool(s["extra.has_keys"][i][:nk])
+
+    def deserialize_extra(self, r):
+        nk = r.read_int()
+        wd = r.read_int()
+        hk = (r.read_vector_bool() + [False] * 3)[:3]
+        return {"num_keys": nk, "world_dim": wd, "has_keys": hk}
+
 
 register_game("heist")(HeistGame)

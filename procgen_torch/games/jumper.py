@@ -29,7 +29,7 @@ from procgen_torch.engine.base import GameDef, base_game_reset, base_game_step
 from procgen_torch.engine.levelgen import mazegen, roomgen
 from procgen_torch.engine.rand_util import choose_nth_masked, first_true
 from procgen_torch.games import register_game
-from procgen_torch.render.fast2 import rgb_constant
+from procgen_torch.render.renderer import rgb_constant
 from procgen_torch.state import F32, I32, EnvState
 
 GOAL_REWARD = 10.0
@@ -515,6 +515,23 @@ class Jumper(GameDef):
         vy = ents.vy[:, a]
         vy = torch.where(vy > -2, vy - fm.f32(0.15), vy)
         return state.replace(ents=eo.write_slot(ents, a, vy=vy))
+
+    def serialize_extra(self, w, s, i):
+        # jumper.cpp:448-463
+        w.write_int(s["extra.jump_count"][i])
+        w.write_int(s["extra.jump_delta"][i])
+        w.write_int(s["extra.jump_time"][i])
+        w.write_bool(s["extra.has_support"][i])
+        w.write_bool(s["extra.facing_right"][i])
+        w.write_int(s["extra.wall_theme"][i])
+        w.write_float(self.compass_dim)
+
+    def deserialize_extra(self, r):
+        out = {"jump_count": r.read_int(), "jump_delta": r.read_int(),
+               "jump_time": r.read_int(), "has_support": r.read_bool(),
+               "facing_right": r.read_bool(), "wall_theme": r.read_int()}
+        r.read_float()  # compass_dim
+        return out
 
 
 register_game("jumper")(Jumper)

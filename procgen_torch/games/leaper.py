@@ -360,5 +360,27 @@ class LeaperGame(GameDef):
         )
         return state.replace(done=state.done | drown | oob)
 
+    def serialize_extra(self, w, s, i):
+        # leaper.cpp:285-292: each lane group's speeds, its count first
+        w.write_int(s["extra.bottom_road_y"][i])
+        n_road = int(s["extra.n_road"][i])
+        w.write_vector_float(s["extra.road_lane_speeds"][i][:n_road])
+        w.write_int(s["extra.bottom_water_y"][i])
+        n_water = int(s["extra.n_water"][i])
+        w.write_vector_float(s["extra.water_lane_speeds"][i][:n_water])
+        w.write_int(s["extra.goal_y"][i])
+
+    def deserialize_extra(self, r):
+        out = {"bottom_road_y": r.read_int()}
+        for group in ("road", "water"):
+            speeds = r.read_vector_float()
+            out[f"{group}_lane_speeds"] = np.zeros((MAX_LANES,), np.float32)
+            out[f"{group}_lane_speeds"][:len(speeds)] = speeds
+            out[f"n_{group}"] = len(speeds)
+            if group == "road":
+                out["bottom_water_y"] = r.read_int()
+        out["goal_y"] = r.read_int()
+        return out
+
 
 register_game("leaper")(LeaperGame)

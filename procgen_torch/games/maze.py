@@ -137,5 +137,13 @@ class MazeGame(GameDef):
             done=reward > 0,  # maze.cpp:122 (overwrites base's OOB done)
         )
 
+    def serialize_extra(self, w, s, i):
+        # maze.cpp:125-129
+        w.write_int(s["extra.maze_dim"][i])
+        w.write_int(s["extra.world_dim"][i])
+
+    def deserialize_extra(self, r):
+        return {"maze_dim": r.read_int(), "world_dim": r.read_int()}
+
 
 register_game("maze")(MazeGame)

@@ -335,5 +335,12 @@ class MinerGame(GameDef):
         diamonds = (stat_of[seen] == DIAMOND).sum(1).to(I32)
         return flat, diamonds, crushed
 
+    def serialize_extra(self, w, s, i):
+        # miner.cpp:316-319
+        w.write_int(s["extra.diamonds_remaining"][i])
+
+    def deserialize_extra(self, r):
+        return {"diamonds_remaining": r.read_int()}
+
 
 register_game("miner")(MinerGame)

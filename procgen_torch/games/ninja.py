@@ -408,5 +408,25 @@ class Ninja(GameDef):
         extra["last_fire_time"] = torch.where(fire, state.cur_time, extra["last_fire_time"])
         return state.replace(ents=ents, extra=extra)
 
+    def serialize_extra(self, w, s, i):
+        # ninja.cpp:413-434
+        w.write_bool(s["extra.has_support"][i])
+        w.write_bool(s["extra.facing_right"][i])
+        w.write_int(s["extra.last_fire_time"][i])
+        w.write_int(s["extra.wall_theme"][i])
+        w.write_float(GRAVITY)
+        w.write_float(AIR_CONTROL)
+        w.write_float(s["extra.jump_charge"][i])
+        w.write_float(self.jump_charge_inc)
+
+    def deserialize_extra(self, r):
+        out = {"has_support": r.read_bool(), "facing_right": r.read_bool(),
+               "last_fire_time": r.read_int(), "wall_theme": r.read_int()}
+        r.read_float()  # gravity
+        r.read_float()  # air_control
+        out["jump_charge"] = r.read_float()
+        r.read_float()  # jump_charge_inc
+        return out
+
 
 register_game("ninja")(Ninja)

@@ -289,5 +289,35 @@ class Plunder(GameDef):
             level_complete=state.level_complete | quota,
         )
 
+    def serialize_extra(self, w, s, i):
+        # plunder.cpp:242-258
+        w.write_int(s["extra.last_fire_time"][i])
+        w.write_vector_bool(s["extra.lane_directions"][i])
+        w.write_vector_bool(s["extra.target_bools"][i])
+        w.write_vector_int(s["extra.image_permutation"][i])
+        w.write_vector_float(s["extra.lane_vels"][i])
+        w.write_int(NUM_LANES)
+        w.write_int(NUM_CURRENT)
+        w.write_int(s["extra.targets_hit"][i])
+        w.write_int(TARGET_QUOTA)
+        w.write_float(s["extra.juice_left"][i])
+        w.write_float(self.r_scale)
+        w.write_float(SPAWN_PROB)
+        w.write_float(LEGEND_R)
+        w.write_float(2 * LEGEND_R + self.r_scale)  # min_agent_x
+
+    def deserialize_extra(self, r):
+        out = {"last_fire_time": r.read_int(), "lane_directions": r.read_vector_bool(),
+               "target_bools": r.read_vector_bool(), "image_permutation": r.read_vector_int(),
+               "lane_vels": r.read_vector_float()}
+        r.read_int()  # num_lanes
+        r.read_int()  # num_current_ship_types
+        out["targets_hit"] = r.read_int()
+        r.read_int()  # target_quota
+        out["juice_left"] = r.read_float()
+        for _ in range(4):
+            r.read_float()  # r_scale, spawn_prob, legend_r, min_agent_x
+        return out
+
 
 register_game("plunder")(Plunder)

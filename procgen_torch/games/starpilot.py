@@ -28,6 +28,7 @@ from procgen_torch.engine.rand_util import first_true
 from procgen_torch.games import register_game
 from procgen_torch.render import assets
 from procgen_torch.state import F32, I32, EnvState
+from procgen_torch.utils.serialize import read_entity_fields, write_entity_defaults
 
 V_SCALE = fm.f32(2.0 / 5.0)
 BG_RATIO = 18.0
@@ -423,6 +424,28 @@ class StarPilot(GameDef):
         fin["image_theme"] = fin_theme
         ents, _ = eo.append_entity(ents, fin, active=at_end)
         return state.replace(ents=ents, rng=mt, extra=extra, reward=reward)
+
+    def serialize_extra(self, w, s, i):
+        # starpilot.cpp:427-435: the spawner list serializes as entities
+        n = int(s["extra.sp_count"][i])
+        w.write_int(n)
+        for k in range(n):
+            vals = {f: s[f"extra.sp_{f}"][i][k] for f in SPAWNER_FIELDS}
+            vals["image_type"] = vals["type"]
+            write_entity_defaults(w, vals)
+
+    def deserialize_extra(self, r):
+        n = r.read_int()
+        out = {
+            f"sp_{f}": np.zeros((MAX_SPAWNERS,), np.int32 if f in _INT_FIELDS else np.float32)
+            for f in SPAWNER_FIELDS
+        }
+        for k in range(n):
+            vals = read_entity_fields(r)
+            for f in SPAWNER_FIELDS:
+                out[f"sp_{f}"][k] = vals[f]
+        out["sp_count"] = n
+        return out
 
 
 def _cpp_sort_order(key: torch.Tensor, on: torch.Tensor) -> torch.Tensor:

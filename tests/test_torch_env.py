@@ -110,11 +110,16 @@ def test_joint_env_master_seed_dealing():
 
 def test_env_refusals(monkeypatch):
     env = ProcgenTorchEnv(2, "maze", rand_seed=1, use_generated_assets=True, device="cpu")
-    for call in (env.get_state, lambda: env.set_state([]), lambda: env.callmethod("get_state")):
-        with pytest.raises(NotImplementedError, match="A9"):
+    # generated assets refuse state serialization, as the reference does
+    # (bag.cpp:1176; tests/test_flags.py:97-99)
+    for call in (env.get_state, lambda: env.callmethod("get_state")):
+        with pytest.raises(RuntimeError, match="use_generated_assets"):
             call()
-    with pytest.raises(NotImplementedError, match="A11"):
-        ProcgenTorchEnv(2, "maze", use_generated_assets=True, render_mode="rgb_array", device="cpu")
+    with pytest.raises(AssertionError):
+        env.set_state([])  # one blob per env
+    hires = ProcgenTorchEnv(2, "maze", use_generated_assets=True, render_mode="rgb_array",
+                            device="cpu")
+    assert hires.get_info()[1]["rgb"].shape == (512, 512, 3)
     # PNG assets (the default) need an asset root; there is none here
     monkeypatch.delenv(assets.ROOT_ENV, raising=False)
     with pytest.raises(FileNotFoundError, match=assets.ROOT_ENV):
