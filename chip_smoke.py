@@ -97,7 +97,20 @@ Phases (each prints one JSON line; any failure exits non-zero):
 8. ``oracle``: for all 16 games, 16 envs after 12 random steps on the card,
    ``oracle.oracle_obs`` and ``oracle.oracle_static`` (plain torch) equal
    ``render_frames2`` (the compositor kernel) and ``render_static2`` on the
-   card, and the oracle on the CPU, bit for bit.
+   card, and the oracle on the CPU, bit for bit;
+9. ``train``: ``python -m procgen_torch.learn.train`` (its ``main``) for 2
+   PPO iterations at full width on coinrun easy, PNG assets: 256 envs,
+   256-step rollouts, 3 epochs of 8 minibatches of 8,192 observations, the
+   bf16 IMPALA CNN at depths (16, 32, 32).  Per iteration the rollout's and
+   the update's seconds and the training env-steps/s; the compositor's
+   launches in the phase (one per frame, 257 per iteration) and, at the
+   last rollout's final frame (256 envs), the kernel against its plain
+   version bitwise and its ms per launch; ``max_memory_allocated``; loss
+   and entropy finite, parameters changed; and on one minibatch of the
+   rollout the float32 net's logits and gradients card against CPU (TF32
+   off) and the bf16 logits against the float32 CPU ones, within the
+   tolerances stated at ``F32_LOGITS_TOL``.  Its ``per_path`` record is
+   ``train-coinrun-easy``.
 
 The asset root: ``PROCGEN_TORCH_ASSET_ROOT`` when it is set (the script
 prints which root it used), else a synthetic root
@@ -112,7 +125,9 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -146,6 +161,9 @@ from procgen_torch.games.jumper import SCANS_SPAN
 from procgen_torch.games.leaper import PREROLL_SPAN
 from procgen_torch.games.miner import SWEEP_SPAN
 from procgen_torch.games.starpilot import SPAWNERS_SPAN
+from procgen_torch.learn import ppo as learn_ppo
+from procgen_torch.learn import train
+from procgen_torch.learn.nets import ImpalaCNN
 from procgen_torch.parallel.fast import REFILL_SPAN, make_fast_fns
 from procgen_torch.render import assets, compositor, fast2, oracle
 from procgen_torch.render.pack import RenderPack
@@ -649,8 +667,11 @@ def drawn_pixels(records, z_filter) -> int:
     return int((inside(d[:, 0], d[:, 2]) * inside(d[:, 1], d[:, 3])).sum())
 
 
-def phase_timing(run, dev):
-    gd, cfg, tables, records, kmax = run.gd, run.cfg, run.tables, run.records, run.kmax
+def kernel_timing(run) -> dict:
+    """The kernel's and its plain version's ms per launch at the final
+    frame's records of ``run`` (after ``phase_final_frames``), and the
+    launch's bound."""
+    tables, records, kmax = run.tables, run.records, run.kmax
     N, E, _ = records.shape
     n_pass = len(run.inputs)
 
@@ -674,6 +695,16 @@ def phase_timing(run, dev):
     pixels = sum(drawn_pixels(records[:, :read], z) for _, z in run.inputs) / n_pass
     ops_ms = pixels * FLOPS_PER_PIXEL_RECORD / PEAK_F32_FLOPS * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    return dict(kernel_ms=kern_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, records=[N, E],
+                kmax=read, drawn_records=drawn, drawn_pixels_per_launch=pixels,
+                launches_per_step=n_pass)
+
+
+def phase_timing(run, dev):
+    gd, cfg = run.gd, run.cfg
+    N = run.records.shape[0]
+    kern = kernel_timing(run)
 
     # where a step's time goes.  Unprofiled: the whole step and the refills
     # per step (from the main path), then the game step alone, one frame and
@@ -742,11 +773,7 @@ def phase_timing(run, dev):
         if span in spans:  # inside the profiled steps, against their wall time
             extra[f"{name}_profiled_share_of_step"] = spans[span] / wall_ns
             extra[f"torch_ops_per_step_in_{name}"] = w["ops"][span] / window
-    emit("timing", game=run.game, mode=run.mode, kernel_ms=kern_ms, plain_ms=plain_ms,
-         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, bytes_bound_ms=bytes_ms,
-         ops_bound_ms=ops_ms, records=[N, E], kmax=read, drawn_records=drawn,
-         drawn_pixels_per_launch=pixels,
-         launches_per_step=n_pass, env_steps_per_s=run.sps,
+    emit("timing", game=run.game, mode=run.mode, **kern, env_steps_per_s=run.sps,
          step_ms=step_ms, game_step_ms=game_step_ms, frame_ms=frame_ms,
          refill_ms=refill_ms, refills_per_step=run.refills_per_step,
          refill_share_est=run.refills_per_step * refill_ms / step_ms,
@@ -761,9 +788,14 @@ def phase_timing(run, dev):
          torch_ops_per_frame=w["ops"][FRAME_SPAN] / window,
          torch_ops_per_step_outside_spans=w["ops_outside"] / window,
          top_device_kernels=[[k[:60], v / 1e6] for k, v in top])
-    return dict(ms=kern_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                launches=run.launches, launches_per_step=n_pass, max_abs_err=run.err,
-                records=[N, E])
+    return path_record(kern, run.launches, run.err)
+
+
+def path_record(k: dict, launches: int, err: float) -> dict:
+    """A path's entry in the kernels line's ``per_path``."""
+    return dict(ms=k["kernel_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+                bound_by=k["bound_by"], launches=launches,
+                launches_per_step=k["launches_per_step"], max_abs_err=err, records=k["records"])
 
 
 def phase_env(dev):
@@ -968,6 +1000,149 @@ def phase_oracle(dev):
          max_live_entities=out, seconds_per_game=seconds)
 
 
+# the train phase: the trainer's CLI at full width (its defaults: coinrun
+# easy, 256 envs, 256-step rollouts, 8 minibatches of 8,192, 3 epochs, the
+# bf16 IMPALA CNN at depths (16, 32, 32)) for TRAIN_ITERS iterations
+TRAIN_GAME, TRAIN_MODE, TRAIN_ENVS, TRAIN_STEPS, TRAIN_ITERS = "coinrun", "easy", 256, 256, 2
+TRAIN_ARGS = [TRAIN_GAME, "--distribution-mode", TRAIN_MODE, "--num-envs", str(TRAIN_ENVS),
+              "--n-steps", str(TRAIN_STEPS), "--iters", str(TRAIN_ITERS)]
+# card against CPU on one minibatch of the last rollout, each error taken
+# relative to the largest magnitude of the CPU's float32 result.  The
+# float32 net (TF32 off): within 1e-4 on the logits (H100, 700 W: 8.2e-7)
+# and 1e-2 on each gradient tensor (H100, 700 W: at most 9.9e-4, on the
+# second sequence's kernels and biases, where a weight gradient sums
+# millions of products of both signs and max-pooling and ReLU route it
+# discontinuously).  The trained bf16 net on the card within 0.05 of the
+# float32 CPU logits (6.4 bf16 eps; H100, 700 W: 0.53%).
+F32_LOGITS_TOL, F32_GRAD_TOL, BF16_LOGITS_TOL = 1e-4, 1e-2, 0.05
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|, on the host."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=torch.finfo(torch.float32).tiny))
+
+
+def phase_train(dev):
+    """``procgen_torch.learn.train.main`` for TRAIN_ITERS iterations at full
+    width, with the rollout and the update timed (synchronized host clock)
+    through wrappers of ``ppo.rollout`` and ``ppo.update``; the compositor's
+    launches counted from 0 just before and read just after (one per
+    rendered frame: n_steps + 1 per iteration); then the kernel against its
+    plain version at the last rollout's final frame, and the net card
+    against CPU on one minibatch.  Returns the train path's ``per_path``
+    record."""
+    rec = dict(rollout_s=[], update_s=[])
+    rollout, update = learn_ppo.rollout, learn_ppo.update
+
+    def timed_rollout(net, *args):
+        rec.setdefault("params0", [p.detach().clone() for p in net.parameters()])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rollout(net, *args)
+        torch.cuda.synchronize()
+        rec["rollout_s"].append(time.perf_counter() - t0)
+        rec["fs"] = out[0]
+        return out
+
+    def timed_update(ts, ppo, batch, gen):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update(ts, ppo, batch, gen)
+        torch.cuda.synchronize()
+        rec["update_s"].append(time.perf_counter() - t0)
+        rec.update(ts=ts, ppo=ppo, batch=batch)
+        return out
+
+    printed = io.StringIO()
+    learn_ppo.rollout, learn_ppo.update = timed_rollout, timed_update
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        compositor.launches = 0  # counts start here: the train path's run
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = train.main(TRAIN_ARGS)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = compositor.launches  # counts read here
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        learn_ppo.rollout, learn_ppo.update = rollout, update
+    iters = [json.loads(line) for line in printed.getvalue().splitlines()]
+    frames = TRAIN_ITERS * (TRAIN_STEPS + 1)
+    if rc != 0 or len(iters) != TRAIN_ITERS:
+        raise AssertionError(f"train: exit {rc}, {len(iters)} logged iterations")
+    if launches != frames:
+        raise AssertionError(f"train: compositor launches {launches} != {frames} frames")
+    if not all(np.isfinite(m["loss"]) and np.isfinite(m["entropy"]) for m in iters):
+        raise AssertionError(f"train: non-finite loss or entropy: {iters}")
+    ts, ppo = rec["ts"], rec["ppo"]
+    moved = [not torch.equal(a, b) for a, b in zip(rec["params0"], ts.net.parameters())]
+    if not any(moved):
+        raise AssertionError("train: no parameter changed")
+
+    # the kernel at the train path's shapes: the last rollout's final state
+    cfg = EnvConfig(env_name=TRAIN_GAME, num_envs=TRAIN_ENVS,
+                    distribution_mode=DistributionMode[TRAIN_MODE]).resolve_exploration()
+    gd = make_game(cfg)
+    run = types.SimpleNamespace(game=f"train-{TRAIN_GAME}", gd=gd, cfg=cfg,
+                                pack=RenderPack(gd, cfg), fs=rec["fs"])
+    phase_final_frames(run, dev)
+    kern = kernel_timing(run)
+
+    # card against CPU on one minibatch of the last rollout
+    mb_size = TRAIN_ENVS * TRAIN_STEPS // ppo.n_minibatches
+    mb = [x.reshape((-1,) + x.shape[2:])[:mb_size] for x in rec["batch"]]
+    with torch.no_grad():
+        bf16_logits = ts.net(mb[0])[0]
+    state = ts.net.state_dict()
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        res = {}
+        for d in (dev, "cpu"):
+            net = ImpalaCNN(dtype=torch.float32, device=d)
+            net.load_state_dict(state)
+            outs = []
+
+            def recording(obs, net=net, outs=outs):
+                outs.append(net(obs))
+                return outs[-1]
+
+            loss, _ = learn_ppo.loss_fn(recording, ppo, [x.to(d) for x in mb])
+            loss.backward()
+            res[d] = (outs[0][0], {k: p.grad for k, p in net.named_parameters()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    check_s = time.perf_counter() - t0
+    (card_logits, card_grads), (cpu_logits, cpu_grads) = res[dev], res["cpu"]
+    grad_errs = sorted(((rel_err(card_grads[k], b), k) for k, b in cpu_grads.items()),
+                       reverse=True)
+    errs = dict(f32_logits=rel_err(card_logits, cpu_logits), f32_grads=grad_errs[0][0],
+                bf16_logits=rel_err(bf16_logits, cpu_logits))
+    tols = dict(f32_logits=F32_LOGITS_TOL, f32_grads=F32_GRAD_TOL, bf16_logits=BF16_LOGITS_TOL)
+    if not all(errs[k] <= tols[k] for k in errs):  # NaN fails too
+        raise AssertionError(f"train: card against CPU beyond tolerance: {errs} (limits {tols})")
+
+    steps = TRAIN_ENVS * TRAIN_STEPS
+    emit("train", game=TRAIN_GAME, mode=TRAIN_MODE, args=TRAIN_ARGS, num_envs=TRAIN_ENVS,
+         n_steps=TRAIN_STEPS, n_minibatches=ppo.n_minibatches, minibatch=mb_size,
+         n_epochs=ppo.n_epochs, net_dtype=str(ts.net.dtype),
+         params=sum(p.numel() for p in ts.net.parameters()), main_s=main_s,
+         rollout_s=rec["rollout_s"], update_s=rec["update_s"],
+         train_env_steps_per_s=[steps / (r + u) for r, u in zip(rec["rollout_s"], rec["update_s"])],
+         launches=launches, frames=frames, kernel_ms=kern["kernel_ms"],
+         plain_ms=kern["plain_ms"], bound_ms=kern["bound_ms"], records=kern["records"],
+         kmax=kern["kmax"], drawn_records=kern["drawn_records"],
+         max_memory_allocated=peak, loss_entropy_finite=True,
+         params_changed=f"{sum(moved)}/{len(moved)}", card_vs_cpu_rel_err=errs,
+         card_vs_cpu_tol=tols, card_vs_cpu_worst_grads=grad_errs[:3], card_vs_cpu_s=check_s,
+         iterations=iters)
+    return dict(path_record(kern, launches, run.err), assets="png")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -1005,6 +1180,7 @@ def main() -> int:
             phase_state(dev, worker)
             phase_render_mode(dev, worker)
         phase_oracle(dev)
+        per_path[f"train-{TRAIN_GAME}-{TRAIN_MODE}"] = phase_train(dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -7,6 +7,12 @@ MT19937 words are uint32 in numpy and int64 in the port; every other dtype
 is kept.  The port never imports JAX: a caller holding a JAX pytree flattens
 it with ``jax.tree_util.tree_flatten_with_path`` and hands the pairs to
 ``fields_from_keypaths``.
+
+The IMPALA net's parameters cross the same way, keyed by flax's key paths
+(``params.ConvSequence_0.ResidualBlock_1.Conv_0.kernel``): conv kernels are
+HWIO there and OIHW here, dense kernels ``(in, out)`` there and ``(out, in)``
+here.  The dense layer's 2048 inputs keep flax's (h, w, c) order, since the
+port's forward flattens its activations NHWC as flax does.
 """
 
 from __future__ import annotations
@@ -94,3 +100,67 @@ def fast_state_to_numpy(fs: FastState) -> dict:
     out.update(state_to_numpy(fs.queue, "queue."))
     out["queue_valid"] = _to_numpy(fs.queue_valid)
     return out
+
+
+# flax module names -> the port's ImpalaCNN attribute names
+_IMPALA_DENSE = {"Dense_0": "dense", "Dense_1": "logits", "Dense_2": "value"}
+_IMPALA_LEAF = {"kernel": "weight", "bias": "bias"}
+
+
+def _impala_key(path: str) -> str:
+    """``params.ConvSequence_0.ResidualBlock_1.Conv_0.kernel`` ->
+    ``seqs.0.res1.conv0.weight`` (``params.Dense_1.bias`` -> ``logits.bias``)."""
+    root, *mods, leaf = path.split(".")
+    if root != "params":
+        raise KeyError(f"not an ImpalaCNN parameter path: {path}")
+    out = []
+    for m in mods:
+        kind, idx = m.rsplit("_", 1)
+        if kind == "ConvSequence":
+            out.append(f"seqs.{idx}")
+        elif kind == "ResidualBlock":
+            out.append(f"res{idx}")
+        elif kind == "Conv":  # a sequence's own conv, or a block's two
+            out.append("conv" if len(mods) == 2 else f"conv{idx}")
+        else:
+            out.append(_IMPALA_DENSE[m])
+    return ".".join(out + [_IMPALA_LEAF[leaf]])
+
+
+def _impala_layout(a: np.ndarray) -> np.ndarray:
+    """flax kernel layout -> the port's (biases unchanged)."""
+    if a.ndim == 4:  # HWIO -> OIHW
+        return a.transpose(3, 2, 0, 1)
+    return a.T if a.ndim == 2 else a
+
+
+def impala_params_from_numpy(flat: dict) -> dict:
+    """{flax key path: np.ndarray} (see ``fields_from_keypaths``) -> a
+    state_dict for ``learn.nets.ImpalaCNN.load_state_dict``."""
+    return {
+        _impala_key(k): torch.from_numpy(np.ascontiguousarray(_impala_layout(np.array(v))))
+        for k, v in flat.items()
+    }
+
+
+def impala_params_to_numpy(module) -> dict:
+    """The inverse: an ImpalaCNN's parameters as {flax key path: np.ndarray}
+    in flax's layouts."""
+    sd = module.state_dict()
+    out = {}
+    for k in _impala_paths(len(module.seqs)):
+        a = sd[_impala_key(k)].detach().cpu().numpy()
+        if a.ndim == 4:  # OIHW -> HWIO
+            a = a.transpose(2, 3, 1, 0)
+        out[k] = np.ascontiguousarray(a.T if a.ndim == 2 else a)
+    return out
+
+
+def _impala_paths(n_seqs: int) -> list:
+    """flax's key paths of an ImpalaCNN with ``n_seqs`` conv sequences."""
+    mods = []
+    for i in range(n_seqs):
+        mods.append(f"ConvSequence_{i}.Conv_0")
+        mods += [f"ConvSequence_{i}.ResidualBlock_{j}.Conv_{k}" for j in range(2) for k in range(2)]
+    mods += list(_IMPALA_DENSE)
+    return [f"params.{m}.{leaf}" for m in mods for leaf in _IMPALA_LEAF]
