@@ -51,6 +51,16 @@ PROGRESS_COLOR = (245.0, 66.0, 144.0)
 SHIP_ASSETS = tuple(f"misc_assets/ship_{i}.png" for i in range(1, 7))
 
 
+def spawn_row(lane: torch.Tensor, r_scale: float, main_height: float) -> torch.Tensor:
+    """The spawned ship's row, ``(lane * .11f + .4f) * (main_height / 2 -
+    r_scale) + main_height / 2`` (plunder.cpp:195-214).  The reference's
+    bits are those of the chain in double, narrowed once at the float
+    store, in both modes; rounding each float op in turn is an ulp off on
+    lane 4 at ``r_scale`` 1 (17.56)."""
+    half = main_height / 2
+    return fm.narrow((lane.to(torch.float64) * fm.f32(0.11) + fm.f32(0.4)) * (half - r_scale) + half)
+
+
 class Plunder(GameDef):
     name = "plunder"
     timeout = 4000  # plunder.cpp:35
@@ -251,9 +261,7 @@ class Plunder(GameDef):
         spawn = u < SPAWN_PROB
         mt, lane = R.mt_randn(mt, NUM_LANES, active=spawn)
         lane_i = lane.to(torch.int64)[:, None]
-        # "(lane * .11f + .4f) * (main_height / 2 - r_scale) + main_height
-        # / 2", each op rounded in turn
-        ent_y = (lane.to(F32) * fm.f32(0.11) + fm.f32(0.4)) * (mh / 2 - r_scale) + mh / 2
+        ent_y = spawn_row(lane, r_scale, mh)
         moves_right = torch.gather(extra["lane_directions"], 1, lane_i)[:, 0]
         ent_vx = torch.gather(extra["lane_vels"], 1, lane_i)[:, 0] * torch.where(moves_right, 1.0, -1.0)
         mt, ti = R.mt_randn(mt, NUM_CURRENT, active=spawn)

@@ -71,6 +71,28 @@ def _is_destructible(t):
     return (t == FLYER) | (t == FAST_FLYER) | (t == TURRET) | (t == METEOR)
 
 
+def _walk_appends(ents, blocks):
+    """The appends of a loop over the table's slots in descending order in
+    which each slot may push back one child of each of ``blocks`` ((fields,
+    mask) pairs over the E slots), in list order: one masked append over
+    the E x len(blocks) candidates, slot-major.  The children land in dead
+    slots, so no walked slot changes."""
+    N, E = ents.alive.shape
+
+    def weave(cols):  # [(N, E)] -> (N, E * len(cols)): slot E-1's first
+        return torch.stack(cols, 2).flip(1).reshape(N, -1)
+
+    fields = {}
+    for name in blocks[0][0]:
+        arr = getattr(ents, name)
+        fields[name] = weave([
+            f[name].to(arr.dtype).expand(N, E) if isinstance(f[name], torch.Tensor)
+            else torch.full((N, E), f[name], dtype=arr.dtype, device=arr.device)
+            for f, _ in blocks])
+    return eo.append_entities_masked(ents, fields, weave([m for _, m in blocks]),
+                                     descending=False)
+
+
 def _is_lethal(t):
     return _is_destructible(t) | (t == BULLET2) | (t == BULLET3)
 
@@ -357,7 +379,9 @@ class StarPilot(GameDef):
         extra = dict(state.extra)
         a = eo.AGENT
 
-        # enemy fire and deaths (starpilot.cpp:369-394), every slot at once
+        # enemy fire and deaths (starpilot.cpp:369-394): one walk over the
+        # slots in descending order, each enemy's shot appended before its
+        # death explosion (every slot at once, see _walk_appends)
         t = ents.type
         ft = ents.fire_time
         dt_sp = state.cur_time[:, None] - ents.spawn_time
@@ -378,14 +402,13 @@ class StarPilot(GameDef):
         brot = torch.where((bvx != 0) | (bvy != 0), fm.face_rotation(bvx, bvy, -PI / 2), 0.0)
         bullets = eo.make_entity(ents.x, ents.y, bvx, bvy, self.bullet_r, self.bullet_r, BULLET2)
         bullets.update(type=btype, image_type=btype, rotation=brot)
-        ents = eo.append_entities_masked(ents, bullets, fire)
 
-        dead = (ents.alive & (ents.health <= 0) & _is_destructible(ents.type)
-                & ~ents.will_erase & (ents.type != O.PLAYER))
-        ents = ents.replace(will_erase=ents.will_erase | dead)
+        dead = (ents.alive & (ents.health <= 0) & _is_destructible(t)
+                & ~ents.will_erase & (t != O.PLAYER))
         expl = eo.make_entity(ents.x, ents.y, ents.vx, ents.vy, 0.5 * ents.rx, 0.5 * ents.rx,
                               O.EXPLOSION)
-        ents = eo.append_entities_masked(ents, expl, dead)
+        ents = _walk_appends(ents.replace(will_erase=ents.will_erase | dead),
+                             ((bullets, fire), (expl, dead)))
         reward = state.reward + dead.sum(1).to(F32) * fm.f32(ENEMY_REWARD)
 
         # release the spawners whose time has come (starpilot.cpp:396-399):

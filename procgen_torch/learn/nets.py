@@ -121,7 +121,9 @@ class ImpalaCNN(nn.Module):
             x = seq(x)
         x = F.relu(x)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten NHWC
-        x = F.relu(_linear(x, self.dense, self.dtype)).float()
+        # the heads in the parameters' dtype: float32, or float64 in a
+        # float64 copy of the net (``.double()``, dtype float64)
+        x = F.relu(_linear(x, self.dense, self.dtype)).to(self.logits.weight.dtype)
         logits = F.linear(x, self.logits.weight, self.logits.bias)
         value = F.linear(x, self.value.weight, self.value.bias)[:, 0]
         return logits, value

@@ -21,16 +21,13 @@ its ships' aspect ratios from the PNG headers when it is built).
 * the port's fast path against its inline path.
 
 The JAX side's float chains are pinned to the reference's roundings
-(``pin_jax_roundings``, ``pin_jax_render``), and the spawned ship's row
+(``pin_jax_roundings``, ``pin_jax_render``).  The spawned ship's row
 ``(lane * .11f + .4f) * (main_height / 2 - r_scale) + main_height / 2``
-(plunder.py:202-204 of the JAX package), whose two mul+adds XLA:CPU
-contracts into FMAs, through the pinned ``fmuladd32``
-(``pin_plunder_spawn``, ROADMAP section C).
+runs unpinned there: XLA:CPU's FMAs give the reference's bits, which are
+the double chain narrowed once (tests/test_torch_ref_parity_faults.py).
 """
 
-import inspect
 import subprocess
-import textwrap
 
 import numpy as np
 import pytest
@@ -38,7 +35,6 @@ import torch
 
 from procgen_tpu.config import DistributionMode as JMode
 from procgen_tpu.config import EnvConfig as JConfig
-from procgen_tpu.games import plunder as JP
 
 from procgen_torch import objects as O
 from procgen_torch.config import DistributionMode, EnvConfig
@@ -109,24 +105,6 @@ def _one_aspect(init, aspect):
     return patched
 
 
-def pin_plunder_spawn(monkeypatch):
-    """The JAX package's plunder step recompiled from its source with the
-    spawned ship's row rounded as the reference rounds it: each mul+add
-    through ``fmuladd32`` (a host rounding each, after
-    pin_jax_roundings)."""
-    src = textwrap.dedent(inspect.getsource(JP.Plunder.game_step))
-    for old, new in (
-        ("(lane.astype(F32) * F32(0.11) + F32(0.4)) * (",
-         "fm.fmuladd32(cfg, fm.fmuladd32(cfg, lane.astype(F32), F32(0.11), F32(0.4)), ("),
-        (") + mh / 2", "), mh / 2)"),
-    ):
-        assert src.count(old) == 1, old
-        src = src.replace(old, new)
-    scope = dict(vars(JP))
-    exec(compile(src, "<pinned plunder game_step>", "exec"), scope)
-    monkeypatch.setattr(JP.Plunder, "game_step", scope["game_step"])
-
-
 def _cfgs(mode="hard"):
     kw = dict(env_name="plunder", num_envs=N, rand_seed=SEED)
     return (
@@ -158,7 +136,6 @@ def _stage(state, which):
 def test_plunder_step_matches_reference(synth_root, monkeypatch, jax_x64_off, mode, steps):
     pin_jax_roundings(monkeypatch)
     pin_jax_render(monkeypatch)
-    pin_plunder_spawn(monkeypatch)
     counts = dict(targets=0, misses=0, explosions=0, spawned=0)
     prev = None
     for state in stepped_against_reference(*_cfgs(mode), _policy, steps, prepare=_stage):

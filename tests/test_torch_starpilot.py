@@ -37,11 +37,18 @@ bullet's ``num / sqrt(d)`` (starpilot.py:473-476 of the JAX package) into a
 multiply by a reciprocal square root, which is not the IEEE quotient of the
 two correctly rounded ops its fast path spells out (about 40% of random
 inputs differ by an ulp); ``pin_jax_sqrt`` computes the square root on the
-host, which leaves XLA an IEEE division (ROADMAP section C).
+host, which leaves XLA an IEEE division (ROADMAP section C).  The JAX
+package appends every enemy's shot, then every death explosion, where the
+reference walks the slots once (starpilot.cpp:369-394);
+``pin_jax_append_order`` reorders its two blocks into the walk's order,
+and the step test asserts that this moved a child at least once.
 """
 
+import inspect
 import subprocess
+import textwrap
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,6 +57,7 @@ import torch
 from procgen_tpu import fmath as j_fmath
 from procgen_tpu.config import DistributionMode as JMode
 from procgen_tpu.config import EnvConfig as JConfig
+from procgen_tpu.games import starpilot as JS
 
 from procgen_torch import objects as O
 from procgen_torch import rng as R
@@ -168,6 +176,58 @@ def pin_jax_sqrt(monkeypatch):
     monkeypatch.setattr(j_fmath, "dsqrt", dsqrt)
 
 
+def _walk_order(ents, fire, dead, cnt0, record):
+    """One env's table (under vmap) after the JAX package's two appended
+    blocks, every shot of the ``fire`` sources, then every explosion of the
+    ``dead`` ones (each block in descending slot order, from slot ``cnt0``
+    on), with those children moved into the reference's order: one walk
+    down the slots, a slot's shot before its explosion.  ``record(moved,
+    overflow)`` sees whether anything moved, and whether the table was
+    too full to hold both blocks (the blocks then drop other children than
+    the walk would: the test fails)."""
+    E = fire.shape[0]
+    slot = jnp.arange(E)
+    above = slot[None, :] > slot[:, None]
+    fires_above = jnp.sum(above & fire[None, :], 1)
+    deaths_above = jnp.sum(above & dead[None, :], 1)
+    n_fire = jnp.sum(fire.astype(jnp.int32))
+    walk_shot = cnt0 + fires_above + deaths_above
+    walk_expl = walk_shot + fire
+    src = slot.at[jnp.where(fire, walk_shot, E)].set(cnt0 + fires_above, mode="drop")
+    src = src.at[jnp.where(dead, walk_expl, E)].set(cnt0 + n_fire + deaths_above, mode="drop")
+    overflow = cnt0 + n_fire + jnp.sum(dead.astype(jnp.int32)) > E
+    jax.debug.callback(record, jnp.any(src != slot), overflow)
+    return jax.tree_util.tree_map(lambda a: a[src], ents)
+
+
+def pin_jax_append_order(monkeypatch, counts):
+    """The JAX package's starpilot step recompiled from its source with its
+    two blocks of enemy appends reordered into the reference's order right
+    after the second (``_walk_order``); the reordered state is the one
+    compared, and the one carried into the next step.  ``counts["reordered"]``
+    counts the env-steps where that moved a child: a shot and an explosion
+    in one step, a dying slot above a firing one (ROADMAP section C)."""
+
+    def record(moved, overflow):
+        assert not np.any(overflow), "entity table full: the blocks drop other appends"
+        counts["reordered"] += int(np.sum(moved))
+
+    src = textwrap.dedent(inspect.getsource(JS.StarPilot.game_step))
+    for old, new in (
+        ("    ents = eo.append_entities_masked(ents, bfields, fire, descending=True)\n",
+         "    cnt0 = jnp.sum(ents.alive.astype(I32))\n"
+         "    ents = eo.append_entities_masked(ents, bfields, fire, descending=True)\n"),
+        ("    ents = eo.append_entities_masked(ents, efields, dead, descending=True)\n",
+         "    ents = eo.append_entities_masked(ents, efields, dead, descending=True)\n"
+         "    ents = _walk_order(ents, fire, dead, cnt0, _record)\n"),
+    ):
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    scope = dict(vars(JS), _walk_order=_walk_order, _record=record)
+    exec(compile(src, "<starpilot game_step in the walk's order>", "exec"), scope)
+    monkeypatch.setattr(JS.StarPilot, "game_step", scope["game_step"])
+
+
 def _cfgs(mode="hard"):
     kw = dict(env_name="starpilot", num_envs=N, rand_seed=SEED)
     return (
@@ -184,18 +244,20 @@ def _policy(rs):
 
 
 def _stage(state, which):
-    """Two flyers (health 2) in the agent's line of fire, 3 and 6 ahead,
-    and a turret above it that fires at the agent 5 steps in."""
+    """A turret above the agent that fires at it every 5 steps, then two
+    flyers (health 2) in the agent's line of fire, 3 and 6 ahead: a flyer
+    shot down on a step the turret fires dies in a slot above a firing one
+    (the case of ``pin_jax_append_order``)."""
     ents = state.ents
     a = eo.AGENT
     ax, ay = ents.x[:, a], ents.y[:, a]
+    turret = eo.make_entity(ax + 1.0, ay + 5.0, 0.0, 0.0, 1.0, 1.0, SP.TURRET)
+    turret.update(health=5.0, fire_time=5, spawn_time=0)
+    ents, _ = eo.append_entity(ents, turret, active=which)
     for dx in (3.0, 6.0):
         flyer = eo.make_entity(ax + dx, ay, -np.float32(0.05), 0.0, 0.5, 0.5, SP.FLYER)
         flyer.update(health=2.0, rotation=np.float32(SP.PI / 2))
         ents, _ = eo.append_entity(ents, flyer, active=which)
-    turret = eo.make_entity(ax + 1.0, ay + 5.0, 0.0, 0.0, 1.0, 1.0, SP.TURRET)
-    turret.update(health=5.0, fire_time=5, spawn_time=0)
-    ents, _ = eo.append_entity(ents, turret, active=which)
     return state.replace(ents=ents)
 
 
@@ -204,7 +266,8 @@ def test_starpilot_step_matches_reference(synth_root, monkeypatch, jax_x64_off, 
     pin_jax_roundings(monkeypatch)
     pin_jax_render(monkeypatch)
     pin_jax_sqrt(monkeypatch)
-    counts = dict(enemy_bullets=0, kills=0, explosions=0, released=0, deaths=0)
+    counts = dict(enemy_bullets=0, kills=0, explosions=0, released=0, deaths=0, reordered=0)
+    pin_jax_append_order(monkeypatch, counts)
     prev = None
     for state in stepped_against_reference(*_cfgs(mode), _policy, steps, prepare=_stage):
         ents = state.ents
