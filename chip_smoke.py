@@ -56,10 +56,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
       configuration;
    b. the main path: 4096 envs, refill bucket 512, seed 123, generated
       assets on the nine earliest paths and PNG assets from the asset root
-      on the seven asset games: cold start, then 5 warm-up and 25 timed
-      rendered steps with random actions on fruitbot, plunder, starpilot
-      and bossfight, 15 on bigfish, climber, heist, caveflyer and
-      dodgeball, 10 on the seven earliest paths (leaper 3: its resets
+      on the seven asset games: cold start, then 3 warm-up and 10 timed
+      rendered steps with random actions (leaper 2: its resets
       pre-roll 300 physics steps); the kernel's
       launches counted from 0 just before and read just after (launches ==
       frames, or 2 x frames for grid-dynamic games), frames not black;
@@ -95,6 +93,21 @@ Phases (each prints one JSON line; any failure exits non-zero):
    coinrun, jumper, starpilot and caveflyer, 5 steps: the card's ms per
    ``get_info`` (the info-frame batch), and ``info["rgb"]`` of the last
    step (4, 512, 512, 3) uint8 and equal on the card and the CPU;
+7b. ``sharded``: the env axis over processes (``procgen_torch.parallel.
+   sharding``), in spawned ranks: (1) ``entry.dryrun_multichip(1)`` (maze
+   easy, dodgeball hard, miner and bigfish easy, one sharded step over one
+   NCCL rank) against the same steps with no group; (2) two ranks sharing
+   the card over gloo (NCCL refuses two ranks on one GPU), maze easy and
+   dodgeball hard at 512 global envs, refill bucket 64, 20 random steps
+   with deaths staged unevenly across the ranks: every field of the
+   gathered state at every step, rewards, dones and frames equal to one
+   process's; (3) one data-parallel PPO iteration over the two ranks at
+   the trainer's width (coinrun easy, 256 global envs, 32-step rollout):
+   the replicas' parameters bitwise equal, losses finite, the summed
+   float32 gradient against a float64 pass within ``F32_GRAD_TOL``; the
+   sharded step's ms, the iteration's seconds and its collectives' share,
+   the compositor's launches on every rank, and the kernel against plain
+   at a rank's shapes;
 8. ``oracle``: for all 16 games, 16 envs after 12 random steps on the card,
    ``oracle.oracle_obs`` and ``oracle.oracle_static`` (plain torch) equal
    ``render_frames2`` (the compositor kernel) and ``render_static2`` on the
@@ -147,13 +160,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -200,7 +216,7 @@ FLOPS_PER_PIXEL_RECORD = 20
 FRAME_SPAN = "chip_smoke.frame"
 N_ENVS = 4096
 BUCKET = 512
-WARMUP = 5
+WARMUP = 3
 # (game, mode, timed steps, generated assets) of each main path: maze is
 # the static-grid class, miner and chaser the grid-dynamic one, coinrun the
 # center-agent view with entity push, leaper the static view with tiled and
@@ -210,18 +226,18 @@ WARMUP = 5
 # aspect ratios from the PNG assets (bigfish, climber, heist, fruitbot,
 # plunder, starpilot, bossfight) run in the default configuration, PNG
 # assets.  To keep the script's time, the paths run fewer timed steps than
-# they did when they were new: 25 (fruitbot, plunder, starpilot,
-# bossfight), 15 (caveflyer, dodgeball, bigfish, climber, heist), 10 (the
-# seven earliest) and 3 (leaper: each of its resets pre-rolls 300 physics
-# steps).  Their env-steps/s are the script's, not the bench's.
+# they did when they were new: 10, and 2 on leaper (each of its resets
+# pre-rolls 300 physics steps); the sharded phase took the steps cut last
+# (25, 15 and 3 before; warm-up 5 before 3).  Their env-steps/s are the
+# script's, not the bench's.
 PATHS = (
     ("maze", "hard", 10, True), ("miner", "hard", 10, True), ("chaser", "hard", 10, True),
-    ("coinrun", "hard", 10, True), ("leaper", "hard", 3, True), ("ninja", "hard", 10, True),
-    ("jumper", "hard", 10, True), ("caveflyer", "hard", 15, True),
-    ("dodgeball", "hard", 15, True), ("bigfish", "hard", 15, False),
-    ("climber", "hard", 15, False), ("heist", "hard", 15, False),
-    ("fruitbot", "hard", 25, False), ("plunder", "hard", 25, False),
-    ("starpilot", "hard", 25, False), ("bossfight", "hard", 25, False),
+    ("coinrun", "hard", 10, True), ("leaper", "hard", 2, True), ("ninja", "hard", 10, True),
+    ("jumper", "hard", 10, True), ("caveflyer", "hard", 10, True),
+    ("dodgeball", "hard", 10, True), ("bigfish", "hard", 10, False),
+    ("climber", "hard", 10, False), ("heist", "hard", 10, False),
+    ("fruitbot", "hard", 10, False), ("plunder", "hard", 10, False),
+    ("starpilot", "hard", 10, False), ("bossfight", "hard", 10, False),
 )
 # earlier games also held card vs CPU in the PNG configuration
 PNG_CARD_VS_CPU = (("coinrun", "hard"), ("maze", "hard"))
@@ -1230,10 +1246,10 @@ def phase_train(dev, worker):
         rec["fs"] = out[0]
         return out
 
-    def timed_update(ts, ppo, batch, gen):
+    def timed_update(ts, ppo, batch, gen, *mesh):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = update(ts, ppo, batch, gen)
+        out = update(ts, ppo, batch, gen, *mesh)
         torch.cuda.synchronize()
         rec["update_s"].append(time.perf_counter() - t0)
         rec.update(ts=ts, ppo=ppo, batch=batch)
@@ -1342,6 +1358,339 @@ def phase_train(dev, worker):
     return finish
 
 
+# the sharded phase: (1) the dryrun over one NCCL rank on the card against
+# the same steps with no group; (2) two ranks sharing the card over gloo
+# (NCCL refuses two ranks on one GPU) on maze easy and dodgeball hard at
+# SHARDED_ENVS global envs, a refill bucket smaller than a shard, with
+# deaths staged unevenly across the ranks: 160 envs of rank 0 time out at
+# step 2 (their queue slots left empty), 40 envs of rank 1 are reset at
+# steps 4 and 5 (at 5 with empty slots, so the global bucket also takes
+# rank 0's) and 100 of rank 0 at step 8 (more than a bucket); (3) one
+# data-parallel training iteration at the trainer's width over the same two
+# ranks (coinrun easy, 256 global envs, n_steps cut to 32).
+SHARDED_RANKS, SHARDED_ENVS, SHARDED_BUCKET, SHARDED_STEPS = 2, 512, 64, 20
+SHARDED_JOBS = [dict(env_name=g, mode=m, num_envs=SHARDED_ENVS, steps=SHARDED_STEPS,
+                     refill_bucket=SHARDED_BUCKET, action_seed=11,
+                     deaths=tuple((e, 2) for e in range(160)),
+                     resets=tuple((t, e) for t in (4, 5) for e in range(300, 340))
+                     + tuple((8, e) for e in range(100)))
+                for g, m in (("maze", "easy"), ("dodgeball", "hard"))]
+DP_ENVS, DP_STEPS = 256, 32
+
+
+def sync(dev):
+    """Wait for the card (nothing on the CPU, where a rank of the sharded
+    phase runs when it is rehearsed)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def timed_collectives(rec: dict, dev):
+    """Wrap ``sharding.all_reduce`` and ``sharding.broadcast`` (read at call
+    time by their callers) to add each call's synchronized host seconds to
+    ``rec["comm_s"]``; returns the function that restores them."""
+    from procgen_torch.parallel import sharding
+
+    saved = sharding.all_reduce, sharding.broadcast
+
+    def timed(fn):
+        def call(t, mesh, *args):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn(t, mesh, *args)
+            sync(dev)
+            rec["comm_s"] += time.perf_counter() - t0
+            rec["comm_calls"] += 1
+            return out
+        return call
+
+    rec.update(comm_s=0.0, comm_calls=0)
+    sharding.all_reduce, sharding.broadcast = timed(saved[0]), timed(saved[1])
+
+    def restore():
+        sharding.all_reduce, sharding.broadcast = saved
+
+    return restore
+
+
+def dp_iteration(dev, mesh=None, num_envs=DP_ENVS, n_steps=DP_STEPS) -> dict:
+    """One training iteration of the trainer's learner at ``num_envs``
+    global envs (coinrun easy, PNG assets, ``n_steps``; this rank's rows
+    under ``mesh``), timed on the host with the card synchronized, its
+    collectives timed, the compositor's launches counted from 0 just before
+    and read just after; then the float32 net's gradient (TF32 off) of the
+    loss over the rollout's first step of every env (under ``mesh`` each
+    rank's share, summed over the ranks).  Returns numpy: the global
+    actions, the parameters, the gradient, that batch (gathered), metrics
+    and times."""
+    from procgen_torch.parallel import sharding
+
+    cfg = EnvConfig(env_name=TRAIN_GAME, num_envs=num_envs,
+                    distribution_mode=DistributionMode[TRAIN_MODE], rand_seed=0).resolve_exploration()
+    env = train.make_env(cfg, dev, mesh=mesh)
+    ppo = learn_ppo.PPOConfig(n_steps=n_steps)
+    init_ts, train_iter, _ = learn_ppo.make_train_fns(env.gd, cfg, env.pack, ppo, env.fast_step,
+                                                      env.render_fn, dev, mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    ts = init_ts(gen)
+    ep_acc = torch.zeros((env.fs.queue_valid.shape[0],), dtype=torch.float32, device=dev)
+    rec = {}
+    rollout = learn_ppo.rollout
+
+    def keep(*args):
+        out = rollout(*args)
+        rec["traj"], rec["last_value"] = out[1], out[2]
+        return out
+
+    restore = timed_collectives(rec, dev)
+    learn_ppo.rollout = keep
+    try:
+        compositor.launches = 0  # counts start here: the iteration's run
+        sync(dev)
+        t0 = time.perf_counter()
+        ts, fs, ep_acc, metrics = train_iter(ts, env.fs, gen, ep_acc)
+        sync(dev)
+        iter_s = time.perf_counter() - t0
+        launches = compositor.launches  # counts read here
+    finally:
+        learn_ppo.rollout = rollout
+        restore()
+    traj = rec["traj"]
+    adv, ret = learn_ppo.gae(ppo, traj.reward, traj.value, traj.done, rec["last_value"],
+                             fs.state.done)
+    batch = (traj.obs, traj.action, traj.logp, traj.value, adv, ret)
+    T, n = traj.action.shape
+    flat = [x.reshape((T * n,) + x.shape[2:]) for x in batch]
+    # the gradient's batch: the rollout's first step over every env (a
+    # quarter of a minibatch, for the float64 pass's time), as the first of
+    # T minibatches in batch order: this rank's entries of it, and the
+    # global batch gathered from the ranks
+    order = torch.arange(T * num_envs, device=dev)
+    if mesh is None:
+        idx, stats = order[:num_envs], None
+    else:
+        mbs, st = learn_ppo.local_minibatches(order, flat[4], n, mesh, T, num_envs)
+        idx, stats = mbs[0], st[0]
+    global_mb = [x[0] for x in batch]
+    if mesh is not None:
+        global_mb = sharding.gather_rows(global_mb, mesh)
+    net = ImpalaCNN(dtype=torch.float32, device=dev)
+    net.load_state_dict(ts.net.state_dict())
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        loss, _ = learn_ppo.loss_fn(net, ppo, [x[idx] for x in flat], stats)
+        loss.backward()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    names = [k for k, _ in net.named_parameters()]
+    grad = torch.cat([p.grad.reshape(-1) for p in net.parameters()])
+    actions = traj.action.T.contiguous()
+    if mesh is not None:
+        sharding.all_reduce(grad, mesh)
+        (actions,) = sharding.gather_rows([actions], mesh)
+    grads = dict(zip(names, torch.split(grad, [p.numel() for p in net.parameters()])))
+    return dict(
+        iter_s=iter_s, comm_s=rec["comm_s"], comm_calls=rec["comm_calls"], launches=launches,
+        metrics={k: float(v) for k, v in metrics.items()},
+        actions=actions.cpu().numpy(), checksum=learn_ppo.param_checksum(ts.net).cpu().numpy(),
+        params={k: v.detach().cpu() for k, v in ts.net.state_dict().items()},
+        grads={k: v.reshape(p.shape).cpu() for (k, v), p in zip(grads.items(), net.parameters())},
+        mb=[x.cpu() for x in global_mb], ppo=ppo)
+
+
+def warm_up(dev, games):
+    """A rank's one-time costs outside the timed work: the games' PNG
+    decodes (cached per process), the compositor's library and cuDNN's
+    first convolutions."""
+    for game, mode in games:
+        cfg = EnvConfig(env_name=game, num_envs=1, distribution_mode=DistributionMode[mode])
+        RenderPack(make_game(cfg), cfg)
+    net = ImpalaCNN(device=dev)
+    net(torch.zeros((2, 64, 64, 3), dtype=torch.uint8, device=dev))[0].sum().backward()
+    sync(dev)
+
+
+def sharded_rank(rank: int, world: int, init_method: str, out_dir: str, device: str, jobs,
+                 dp_envs: int, dp_steps: int, epoch: float):
+    """A rank of the sharded phase's parts (2) and (3) on ``device`` (every
+    rank on the same card): once the parent's references are done (the
+    file ``go`` in ``out_dir``), the ``run_steps`` jobs, then the
+    iteration; its rank record in ``out_dir`` (the global runs and the
+    iteration on rank 0, and its timeline in seconds since ``epoch``)."""
+    from procgen_torch import entry
+    from procgen_torch.parallel import sharding
+
+    timeline = dict(started=time.time() - epoch)
+    mesh = sharding.init_distributed(init_method, world, rank, device=device, backend="gloo")
+    try:
+        timeline["joined"] = time.time() - epoch
+        warm_up(mesh.device, [(j["env_name"], j["mode"]) for j in jobs] + [(TRAIN_GAME, TRAIN_MODE)])
+        timeline["warm"] = time.time() - epoch
+        while not os.path.exists(os.path.join(out_dir, "go")):
+            time.sleep(0.05)
+        timeline["go"] = time.time() - epoch
+        runs = []
+        for job in jobs:
+            runs.append(digested(entry.run_steps(**job, mesh=mesh)))
+            timeline[job["env_name"]] = time.time() - epoch
+        dp = dp_iteration(mesh.device, mesh, dp_envs, dp_steps)
+        timeline["dp"] = time.time() - epoch
+    finally:
+        torch.distributed.destroy_process_group()
+    record = dict(launches=[r.pop("launches") for r in runs] + [dp["launches"]],
+                  checksum=dp["checksum"], timeline=timeline, runs=runs if rank == 0 else None,
+                  dp=dp if rank == 0 else None)
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(record, f)
+
+
+def digested(run: dict) -> dict:
+    """A ``run_steps`` record with its states at every step replaced by each
+    field's dtype, shape and SHA-256 (``digests``), and the last state kept
+    whole (``final``): at 512 envs the states of a run are about 0.6 GB."""
+    states = run.pop("states")
+    digests = [{k: (a.dtype.str, a.shape, hashlib.sha256(np.ascontiguousarray(a).data).hexdigest())
+                for k, a in state.items()} for state in states]
+    return dict(run, digests=digests, final=states[-1])
+
+
+def runs_equal(want: dict, got: dict, what: str):
+    """Two ``run_steps`` records bit for bit: rewards, dones, frames, every
+    field of the state at every step (by digest) and the last state."""
+    for k in ("reward", "done", "frames"):
+        if not np.array_equal(want[k], got[k]):
+            raise AssertionError(f"sharded: {what}: {k} differ from one process")
+    for t, (a, b) in enumerate(zip(want["digests"], got["digests"], strict=True)):
+        for k in a:
+            if a[k] != b[k]:
+                raise AssertionError(f"sharded: {what}: {k} differs from one process at step {t}")
+    for k, a in want["final"].items():
+        b = got["final"][k]
+        if a.dtype != b.dtype or not np.array_equal(a.view(np.uint8), b.view(np.uint8)):
+            raise AssertionError(f"sharded: {what}: {k} differs from one process at the end")
+
+
+def phase_sharded(dev, worker):
+    """The env axis over processes (procgen_torch/parallel/sharding.py):
+    (1) ``entry.dryrun_multichip(1)``, one NCCL rank, against the same
+    steps with no group; (2) SHARDED_JOBS over two gloo ranks sharing the
+    card against one process (states at every step, rewards, dones and
+    frames bit for bit), each rank's sharded step timed; (3) one
+    data-parallel iteration over the two ranks: the replicas' parameters
+    bitwise equal, losses finite, the summed float32 gradient of a batch
+    against a float64 pass on the CPU (in the worker) within F32_GRAD_TOL,
+    the iteration's time and its collectives' share; reported, not gated:
+    the largest relative parameter difference from the one-process
+    iteration and the count of differing actions (bf16 convolutions over
+    128 and 256 observations may take different cuDNN algorithms).  Returns
+    the sharded path's ``per_path`` record: every rank's compositor
+    launches, and the kernel against plain and timed at a rank's shapes
+    (maze's final state, rank 0's rows)."""
+    from procgen_torch import entry
+    from procgen_torch.parallel import sharding
+
+    on_card = torch.device(dev).type == "cuda"
+    epoch = time.time()
+    timeline, refs = {}, {}
+
+    def references(go: str):
+        """The one-process references of (1) and (2) while the ranks start
+        (they wait for ``go``), beside (1) in a thread (its one NCCL rank's
+        work is a few small steps)."""
+        def dryrun():
+            try:
+                refs["dry"] = entry.dryrun_multichip(1, dev)
+            except BaseException as e:  # re-raised in this thread below
+                refs["dry_error"] = e
+
+        th = threading.Thread(target=dryrun)
+        th.start()
+        refs["runs"] = [digested(entry.run_steps(**job, device=dev)) for job in SHARDED_JOBS]
+        timeline["references"] = time.time() - epoch
+        refs["dry_refs"] = [digested(entry.run_steps(**job, device=dev))
+                            for job in entry.dryrun_jobs(1)]
+        th.join()
+        timeline["dryrun"] = time.time() - epoch
+        if "dry_error" in refs:
+            raise refs["dry_error"]
+        open(go, "w").close()
+
+    with tempfile.TemporaryDirectory(prefix="procgen_sharded_") as tmp:
+        sharding.spawn_ranks(sharded_rank, SHARDED_RANKS, tmp,
+                             (tmp, "cuda:0" if on_card else dev, SHARDED_JOBS, DP_ENVS, DP_STEPS,
+                              epoch), timeout=300,
+                             beside=lambda: references(os.path.join(tmp, "go")))
+        ranks = []
+        for r in range(SHARDED_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:  # written by our ranks
+                ranks.append(pickle.load(f))
+    timeline["ranks"] = [r["timeline"] for r in ranks]
+    timeline["ranks_done"] = time.time() - epoch
+    # (1): the dryrun's one NCCL rank against the same steps with no group
+    dry = refs["dry"]
+    for job, got, want in zip(entry.dryrun_jobs(1), dry["runs"], refs["dry_refs"]):
+        runs_equal(want, digested(got), f"dryrun {job['env_name']}")
+    launches = sum(sum(r) for r in dry["launches"]) + sum(sum(r["launches"]) for r in ranks)
+    # (2)
+    runs, dp = ranks[0]["runs"], ranks[0]["dp"]
+    # the float64 pass in the worker beside the one-process iteration
+    f64 = worker.submit(f64_net_pass, dp["params"], dp["ppo"], dp["mb"])
+    one = dp_iteration(dev, None, DP_ENVS, DP_STEPS)
+    timeline["dp_reference"] = time.time() - epoch
+    steps = {}
+    for job, got, want in zip(SHARDED_JOBS, runs, refs["runs"]):
+        runs_equal(want, got, f"{job['env_name']} over {SHARDED_RANKS} ranks")
+        steps[job["env_name"]] = dict(
+            sharded_step_ms=float(np.median(got["step_s"])) * 1e3,
+            one_process_step_ms=float(np.median(want["step_s"])) * 1e3,
+            episodes_ended=int(got["done"].sum()))
+    # (3)
+    if any(not np.array_equal(r["checksum"], ranks[0]["checksum"]) for r in ranks):
+        raise AssertionError("sharded: the ranks' parameters differ")
+    if not all(np.isfinite(m["loss"]) and np.isfinite(m["entropy"]) for m in (dp["metrics"],)):
+        raise AssertionError(f"sharded: non-finite loss or entropy: {dp['metrics']}")
+    _, f64_grads = f64.result()
+    grad_errs = sorted(((rel_err(dp["grads"][k], b), k) for k, b in f64_grads.items()), reverse=True)
+    if not grad_errs[0][0] <= F32_GRAD_TOL:  # NaN fails too
+        raise AssertionError(f"sharded: data-parallel gradient vs float64 {grad_errs[:3]}")
+    param_diff = max((rel_err(dp["params"][k], v), k) for k, v in one["params"].items())
+    param_abs = max(float((dp["params"][k] - v).abs().max()) for k, v in one["params"].items())
+    differing = int((dp["actions"] != one["actions"]).sum())
+
+    # the kernel at a rank's shapes: rank 0's rows of maze's final state
+    job = SHARDED_JOBS[0]
+    cfg = EnvConfig(env_name=job["env_name"], num_envs=job["num_envs"],
+                    distribution_mode=DistributionMode[job["mode"]], rand_seed=entry.SEED)
+    gd = make_game(cfg)
+    glob = convert.fast_state_from_numpy(runs[0]["final"], dev)
+    mesh0 = sharding.EnvMesh(0, SHARDED_RANKS, torch.device(dev))
+    run = types.SimpleNamespace(game="sharded-maze-easy", gd=gd, cfg=cfg, pack=RenderPack(gd, cfg),
+                                fs=sharding.shard_env_state(glob, mesh0))
+    phase_final_frames(run, dev)
+    kern = kernel_timing(run)
+    timeline["end"] = time.time() - epoch
+    emit("sharded", nvidia_smi=card_line() if on_card else "not a card", ranks=SHARDED_RANKS,
+         backend="gloo, one card",
+         dryrun=dict(ranks=1, backend="nccl", games=[j["env_name"] for j in entry.dryrun_jobs(1)],
+                     bitwise_vs_no_group=True, launches=dry["launches"]),
+         global_envs=SHARDED_ENVS, refill_bucket=SHARDED_BUCKET, steps=SHARDED_STEPS,
+         bitwise_vs_one_process=True, per_game=steps, timeline=timeline,
+         dp=dict(game=TRAIN_GAME, mode=TRAIN_MODE, global_envs=DP_ENVS, n_steps=DP_STEPS,
+                 iter_s=dp["iter_s"], one_process_iter_s=one["iter_s"],
+                 all_reduce_s=dp["comm_s"], collectives=dp["comm_calls"],
+                 all_reduce_share=dp["comm_s"] / dp["iter_s"], replicas_bitwise=True,
+                 grad_vs_f64_worst=grad_errs[:3], grad_tol=F32_GRAD_TOL,
+                 max_rel_param_diff_vs_one_process=param_diff,
+                 max_abs_param_diff_vs_one_process=param_abs,
+                 differing_actions_vs_one_process=differing, actions=int(dp["actions"].size),
+                 metrics=dp["metrics"]),
+         launches=launches, kernel_ms=kern["kernel_ms"], plain_ms=kern["plain_ms"],
+         bound_ms=kern["bound_ms"], seconds=time.time() - epoch)
+    return dict(path_record(kern, launches, run.err), assets="png")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -1379,6 +1728,7 @@ def main() -> int:
             phase_env(dev)
             phase_state(dev, worker)
             phase_render_mode(dev, worker)
+            per_path["sharded"] = phase_sharded(dev, worker)
             finish_train = phase_train(dev, worker)
             cli = start_bench_cli(dev)
             phase_ref_parity(dev, tmp, beside=lambda: phase_oracle(dev))

@@ -52,6 +52,7 @@ class LeaperGame(GameDef):
     max_jump = MAX_SPEED
     max_entities = 192  # the pre-roll accumulates off-screen spawns
     entity_rotations = "axis"  # cars at 180, frog at 0/90/180/270
+    sprite_tile = 64  # render_frames' sprite tile: FINISH_LINE spans the full world width
     background_group = "topdown_backgrounds"
     reset_max_draws = 4096
 

@@ -120,7 +120,7 @@ class ImpalaCNN(nn.Module):
         for seq in self.seqs:
             x = seq(x)
         x = F.relu(x)
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten NHWC
+        x = x.permute(0, 2, 3, 1).flatten(1)  # flatten NHWC (an empty batch too)
         # the heads in the parameters' dtype: float32, or float64 in a
         # float64 copy of the net (``.double()``, dtype float64)
         x = F.relu(_linear(x, self.dense, self.dtype)).to(self.logits.weight.dtype)

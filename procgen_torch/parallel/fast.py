@@ -7,8 +7,9 @@ depends only on the env's level_seed_rng, which the queue entry already
 advanced); the queue is refilled for a compacted bucket of empty slots, so
 levelgen cost scales with the episode-completion rate, not num_envs.
 
-The refill loop runs on the host: ``while need.any()`` costs one device
-sync per step.
+The refill loop runs on the host: its test for a dying env costs one
+device sync per step (and, under a mesh, one all-reduce of the N refill
+scores).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import dataclasses
 import torch
 
 from procgen_torch.engine.game import finish_step, reset_env, step_env_no_reset
+from procgen_torch.parallel import sharding
 from procgen_torch.render.fast2 import render_static2
 from procgen_torch.render.renderer import update_view_params
 from procgen_torch.state import EnvState, tree_map, tree_select
@@ -43,11 +45,15 @@ class FastState:
     queue_valid: torch.Tensor  # bool (N,)
 
 
-def make_fast_fns(gd, cfg, pack, refill_bucket: int = 1024):
+def make_fast_fns(gd, cfg, pack, refill_bucket: int = 1024, mesh=None):
     """Returns (init, step) for the fast path; ``init.cold`` starts from an
     unreset seeded template batch.  ``pack``: RenderPack; the refill renders
     each level's static layer so per-step frames composite entities only.
-    States may live on any device; all work follows them."""
+    States may live on any device; all work follows them.  With a sharded
+    ``mesh`` (parallel/sharding.py) the states are this rank's rows of the
+    global batch and ``refill_bucket`` is the global bucket."""
+    if mesh is not None and not mesh.sharded:
+        mesh = None
     if cfg.use_sequential_levels:
         raise ValueError("use_sequential_levels requires the inline reset path")
 
@@ -71,13 +77,9 @@ def make_fast_fns(gd, cfg, pack, refill_bucket: int = 1024):
         fs = refill_if_needed(FastState(state, state, none), ~none)
         return FastState(fs.queue, fs.queue, none)
 
-    def _compacted_refill(fs: FastState, need) -> FastState:
-        n = fs.queue_valid.shape[0]
-        bucket = min(refill_bucket, n)
-        # refill priority: dying envs with empty queue first, then other
-        # empty queues; ties by index (a stable sort on -score, as top_k)
-        score = need.to(torch.int32) * 2 + (~fs.queue_valid).to(torch.int32)
-        idx = torch.sort(-score, stable=True).indices[:bucket]
+    def _refill_rows(fs: FastState, idx) -> FastState:
+        """Pregenerate the live rows ``idx`` and write them into the queue
+        slots among them that were empty."""
         fresh = pregen(tree_map(lambda a: a[idx], fs.state))
         fill = ~fs.queue_valid[idx]  # only write slots that were empty
 
@@ -94,14 +96,32 @@ def make_fast_fns(gd, cfg, pack, refill_bucket: int = 1024):
 
     def refill_if_needed(fs: FastState, need) -> FastState:
         # loop the bucket-sized refill until every dying env has a queue
-        # entry; a mass simultaneous death iterates ceil(need / bucket) times
-        while bool(need.any()):
+        # entry; a mass simultaneous death iterates ceil(need / bucket) times.
+        # Refill priority: dying envs with empty queue first, then other
+        # empty queues; ties by index (a stable sort on -score, as top_k).
+        # Which env refills on which step is part of the state (a queue
+        # entry carries the bookkeeping of the step that generated it), so
+        # under a mesh the priority and the bucket are global: every rank
+        # gathers all N scores, takes the same top ``bucket`` and
+        # pregenerates the chosen rows it owns (possibly none), and every
+        # rank runs the same number of iterations.
+        n = fs.queue_valid.shape[0]
+        start = 0 if mesh is None else mesh.rank * n
+        while True:
+            score = need.to(torch.int32) * 2 + (~fs.queue_valid).to(torch.int32)
+            if mesh is not None:
+                (score,) = sharding.gather_rows([score], mesh)
+            if not bool((score >= 2).any()):  # score >= 2 iff need
+                return fs
             # a profiler span (free when no profiler runs): chip_smoke.py
             # reads the refill's share of the step from it
             with torch.profiler.record_function(REFILL_SPAN):
-                fs = _compacted_refill(fs, need)
+                idx = torch.sort(-score, stable=True).indices[:min(refill_bucket, score.shape[0])]
+                if mesh is not None:
+                    idx = idx[(idx >= start) & (idx < start + n)] - start
+                if idx.numel():
+                    fs = _refill_rows(fs, idx)
                 need = need & ~fs.queue_valid
-        return fs
 
     def step(fs: FastState, actions) -> FastState:
         stepped = step_env_no_reset(gd, cfg, fs.state, actions)

@@ -23,12 +23,10 @@ import torch
 from procgen_torch.fmath import div_const, f32
 from procgen_torch.render import compositor
 from procgen_torch.render.renderer import (
-    _CELL_DIV,
-    RENDER_EPS,
     RES,
     _paint_hud,
     _paint_vel_info,
-    _pixel_world_coords,
+    _pixel_cells,
     to_frames,
 )
 from procgen_torch.state import F32, I32
@@ -205,18 +203,6 @@ def dynamic_bg_pass(gd, cfg, states, tables):
 # ---------------------------------------------------------------------------
 # Grid pass
 # ---------------------------------------------------------------------------
-
-
-def _pixel_cells(states):
-    """Per-pixel world cell indices + within-cell texel coords (all (N, 64),
-    separable by axis)."""
-    _, _, wx, wy = _pixel_world_coords(states)
-    wx, wy = wx[:, 0, :], wy[:, :, 0]
-    cxi = torch.floor(wx + RENDER_EPS).to(I32)
-    cyi = torch.floor(wy + RENDER_EPS).to(I32)
-    cu = div_const(wx - (cxi.to(F32) - RENDER_EPS), _CELL_DIV)
-    cv = div_const((cyi.to(F32) + 1 + RENDER_EPS) - wy, _CELL_DIV)
-    return cxi, cyi, cu, cv
 
 
 def grid_pass(gd, cfg, states, tables, canvas):

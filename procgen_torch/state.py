@@ -257,18 +257,20 @@ def init_state_template(gd, cfg, num_envs: int, device="cuda") -> EnvState:
     )
 
 
-def seeded_template(gd, cfg, num_envs: int, device="cuda") -> EnvState:
+def seeded_template(gd, cfg, num_envs: int, device="cuda", rows=None) -> EnvState:
     """The template batch with one level-seed stream per env, dealt from a
     master generator seeded with ``cfg.rand_seed`` (the reference package's
-    bench.py and env wrapper deal seeds the same way)."""
+    bench.py and env wrapper deal seeds the same way).  ``rows`` = (start,
+    count) builds only those rows of the ``num_envs`` batch (a rank's
+    shard): every seed is drawn on the host, the template only for the
+    rows kept."""
     from procgen_torch.rng import HostMT
 
-    state = init_state_template(gd, cfg, num_envs, device)
+    start, count = (0, num_envs) if rows is None else rows
     master = HostMT(cfg.rand_seed)
-    seeds = torch.tensor(
-        [master.randint_full() for _ in range(num_envs)],
-        dtype=I32, device=state.done.device,
-    )
+    seeds = [master.randint_full() for _ in range(num_envs)][start:start + count]
+    state = init_state_template(gd, cfg, count, device)
+    seeds = torch.tensor(seeds, dtype=I32, device=state.done.device)
     return state.replace(level_seed_rng=mt_seed(seeds))
 
 
