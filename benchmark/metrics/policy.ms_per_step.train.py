@@ -1,0 +1,13 @@
+"""Mean host milliseconds of the program's ``procgen_torch.policy`` span
+(the rollout's policy at one step: the forward and the Gumbel draw), from
+``procgen_torch.telemetry``'s totals of the traced window; None where the
+program has no telemetry or the span never ran."""
+
+
+def read(run):
+    try:
+        from procgen_torch import telemetry
+    except ImportError:
+        return None
+    n, ns, _ = telemetry.snapshot()["spans"].get("procgen_torch.policy", (0, 0, 0))
+    return ns / n / 1e6 if n else None

@@ -13,6 +13,7 @@ import torch
 
 from procgen_torch import objects as O
 from procgen_torch import rng as R
+from procgen_torch import telemetry
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine import physics as ph
 from procgen_torch.fmath import dmul, f32, fadd32, fmuladd32
@@ -422,8 +423,9 @@ def base_game_step(gd: GameDef, cfg, state: EnvState) -> EnvState:
     # package; the default grid handler is a no-op, so its probes are skipped
     state = gd.agent_collision_phase(cfg, state)
     if gd.uses_pair_collisions:
-        with torch.profiler.record_function(PAIRS_SPAN):
+        with telemetry.span(PAIRS_SPAN):
             ents = state.ents
+            telemetry.count("host_reads.base.pair_width")
             L = max(int(ents.alive.sum(1).max()), 1)
             state = gd.handle_collision_pairs(cfg, state, pair_collision_mask(ents, L))
     if type(gd).handle_grid_collision is not GameDef.handle_grid_collision:
@@ -470,6 +472,7 @@ def descending_slots(mask: torch.Tensor):
     slot = torch.arange(K, device=mask.device)
     order = torch.sort(torch.where(mask, K - 1 - slot, 2 * K), dim=1, stable=True).indices
     count = mask.sum(1)
+    telemetry.count("host_reads.base.dispatch_count")
     return order, count, int(count.max())
 
 

@@ -12,6 +12,7 @@ import torch
 from procgen_torch import fmath as fm
 from procgen_torch import objects as O
 from procgen_torch import rng as R
+from procgen_torch import telemetry
 from procgen_torch.state import F32, I32, EntityTable, default_entity_fields
 
 AGENT = 0  # agent is always slot 0 (basic-abstract-game.cpp:788-792)
@@ -261,7 +262,7 @@ def reposition(rs, state, rx, ry, type_, collision_margin, x, y, w, h,
         rs, py = rand_pos(rs, ry, y, y + h, act)
         return rs, px, py
 
-    with torch.profiler.record_function(REPOSITION_SPAN):
+    with telemetry.span(REPOSITION_SPAN):
         rs, px, py = try_place(rs, act)
         for k in range(100):
             # has_agent_collision (bag.cpp:1126-1131), then has_any_collision
@@ -271,8 +272,10 @@ def reposition(rs, state, rx, ry, type_, collision_margin, x, y, w, h,
             if check_collisions:
                 bad = bad | has_any_collision_mask(ents, px, py, rx, ry).any(1)
             act = act & bad
-            if k % REPOSITION_CHECK_EVERY == 0 and not bool(act.any()):
-                break
+            if k % REPOSITION_CHECK_EVERY == 0:
+                telemetry.count("host_reads.entity_ops.reposition_test")
+                if not bool(act.any()):
+                    break
             rs, nx, ny = try_place(rs, act)
             px = torch.where(act, nx, px)
             py = torch.where(act, ny, py)
@@ -315,14 +318,16 @@ def reposition_agent(cfg, state, rs):
         rs, uy = R.rs_rand01(rs, active=act)
         return rs, fm.fmuladd32(cfg, ux, mw - 2 * arx, arx), fm.fmuladd32(cfg, uy, mh - 2 * ary, ary)
 
-    with torch.profiler.record_function(REPOSITION_SPAN):
+    with telemetry.span(REPOSITION_SPAN):
         act = torch.ones_like(state.done)
         rs, ax, ay = try_pos(rs, act)
         for k in range(99):
             hit = entity_vs_all(ents, ax, ay, arx, ary, margin=ents.collision_margin)
             act = act & (hit & ents.alive & (ents.type != O.PLAYER)).any(1)
-            if k % REPOSITION_CHECK_EVERY == 0 and not bool(act.any()):
-                break
+            if k % REPOSITION_CHECK_EVERY == 0:
+                telemetry.count("host_reads.entity_ops.reposition_test")
+                if not bool(act.any()):
+                    break
             rs, nx, ny = try_pos(rs, act)
             ax = torch.where(act, nx, ax)
             ay = torch.where(act, ny, ay)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from procgen_torch import rng as R
+from procgen_torch import telemetry
 from procgen_torch.state import I32, EnvState, tree_select
 
 
@@ -94,6 +95,7 @@ def step_env(gd, cfg, state: EnvState, action) -> EnvState:
     reset is levelgen for the whole batch, and leaper's pre-rolls 300
     physics steps."""
     state = step_env_no_reset(gd, cfg, state, action)
+    telemetry.count("host_reads.game.reset_test")
     if bool(state.done.any()):
         reset_state = reset_env(gd, cfg, state)
         state = tree_select(state.done, reset_state, state)

@@ -27,6 +27,7 @@ import torch
 
 from procgen_torch import objects as O
 from procgen_torch import rng as R
+from procgen_torch import telemetry
 from procgen_torch.engine.rand_util import choose_n_erase, choose_nth_masked, first_true
 from procgen_torch.state import I32
 
@@ -252,7 +253,7 @@ def generate_maze_with_doors(rs, num_doors, maze_dim, max_dim: int, max_doors: i
     is a batched mask dilation.  The searches run until no env is still
     searching, read on the host every few waves (an env that has stopped
     changes nothing)."""
-    with torch.profiler.record_function(DOORS_SPAN):
+    with telemetry.span(DOORS_SPAN):
         return _generate_maze_with_doors(rs, num_doors, maze_dim, max_dim, max_doors)
 
 
@@ -285,8 +286,10 @@ def _generate_maze_with_doors(rs, num_doors, maze_dim, max_dim: int, max_doors: 
     active = torch.ones((B,), dtype=torch.bool, device=dev)
     for k in range(64):
         active = active & torch.gather(door_adj, 1, cell[:, None])[:, 0]
-        if k % _SYNC_EVERY == 0 and not bool(active.any()):
-            break
+        if k % _SYNC_EVERY == 0:
+            telemetry.count("host_reads.mazegen.agent_cell_test")
+            if not bool(active.any()):
+                break
         rs, m = R.rs_randn(rs, n_space, active=active)
         cell = torch.where(active, choose_nth_masked(space, m), cell)
     flat[b, cell] = O.AGENT_OBJ
@@ -313,6 +316,7 @@ def _generate_maze_with_doors(rs, num_doors, maze_dim, max_dim: int, max_doors: 
                 vis = torch.where(grow, vis | new, vis)
                 wave = torch.where(grow, new, wave)
                 found = found | hit
+            telemetry.count("host_reads.mazegen.door_search_test")
             if not bool((search_active & ~found & wave.any(1)).any()):
                 break
         found_cell = first_true(wave & door_adj)
@@ -334,6 +338,7 @@ def _generate_maze_with_doors(rs, num_doors, maze_dim, max_dim: int, max_doors: 
                 new = _grow(vis, space, AD) & on[:, None]
                 vis = vis | new
                 grew = on & new.any(1)
+            telemetry.count("host_reads.mazegen.region_test")
             if not bool(grew.any()):
                 break
         s1 = vis & ~visited

@@ -27,6 +27,7 @@ import functools
 import torch
 
 from procgen_torch import objects as O
+from procgen_torch import telemetry
 from procgen_torch.state import I32
 
 # (dx, dy) of the reference's neighbour pushes, in push order
@@ -113,6 +114,7 @@ def best_room_mask(grid, dim):
             m = torch.where(space, m, big).reshape(N, G)
             jump = torch.gather(m, 1, m.clamp(max=G - 1))
             labels = torch.where(space, torch.minimum(m, jump).reshape(N, Hm, Wm), big)
+        telemetry.count("host_reads.roomgen.label_test")
         if not bool((labels != before).any()):
             break
     flat = labels.reshape(N, G)
@@ -153,7 +155,7 @@ def find_path_mask(grid, dim, src, dst):
     from the start.  A cell of layer d + 1 is discovered by the first popped
     of its layer-d neighbours; the queue orders layer d + 1 by the parent's
     position in layer d, then by push direction."""
-    with torch.profiler.record_function(FIND_PATH_SPAN):
+    with telemetry.span(FIND_PATH_SPAN):
         return _find_path(grid, dim, src, dst)
 
 
@@ -198,6 +200,7 @@ def _find_path(grid, dim, src, dst):
             dense = torch.empty_like(order).scatter_(1, order, cell.expand(N, G))
             rank = torch.where(new, dense.reshape(N, Hm, Wm), inf)
             frontier = new
+        telemetry.count("host_reads.roomgen.frontier_test")
         if not bool((frontier.any((1, 2)) & ~found).any()):
             break
 
@@ -206,6 +209,7 @@ def _find_path(grid, dim, src, dst):
     path = torch.zeros((N, G), dtype=torch.bool, device=dev)
     via_flat = via.reshape(N, G)
     cur = dst_g[:, 0]
+    telemetry.count("host_reads.roomgen.path_depth")
     steps = int(depth.max())
     for s in range(steps + 1):
         on = found & (s <= depth)

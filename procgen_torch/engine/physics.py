@@ -17,6 +17,7 @@ import torch
 
 from procgen_torch import fmath as fm
 from procgen_torch import objects as O
+from procgen_torch import telemetry
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine.rand_util import first_true
 from procgen_torch.state import F32, I32, EnvState
@@ -281,7 +282,7 @@ def sub_step(gd, cfg, state: EnvState, idxs, _vx, _vy, active, n_live=None,
         )
         block = block | block2
     elif gd.uses_entity_reflect:
-        with torch.profiler.record_function(REFLECT_SPAN):
+        with telemetry.span(REFLECT_SPAN):
             nx, ny, nvx, nvy, block2 = _entity_reflect(
                 gd, cfg, state, idxs, obj, nx, ny, nvx, nvy, _vx, _vy, is_horizontal,
                 active, reflect_slots,
@@ -338,6 +339,7 @@ def basic_step_object(gd, cfg, state: EnvState, idxs, active=None, n_live=None,
     zero = torch.zeros((N, M), dtype=F32, device=dev)
     vx_pct, vy_pct = zero, zero
     broke = torch.zeros((N, M), dtype=torch.bool, device=dev)
+    telemetry.count("host_reads.physics.substeps")
     for s in range(int(torch.where(active, nss, 0).max())):
         act = active & (s < nss) & ~broke
         cur = eo.read_slots(state.ents, idxs, ("vx", "vy"))
@@ -452,6 +454,7 @@ def step_entities(gd, cfg, state: EnvState) -> EnvState:
             can = can | gd.is_blocked_ents_vals(cfg, state, mtype, tgt, h)
         ok = (ents.alive & ~ents.will_erase)[:, None, :] & (order[..., None] != slot)
         reads.append((can & ok & act[..., None]).any(1).any(0).to(torch.int64))
+    telemetry.count("host_reads.physics.mover_counts")
     vals = torch.cat(reads).tolist()
     M = min(M, max(vals[0], 1))
     n_live = vals[1] if gd.uses_entity_push else None

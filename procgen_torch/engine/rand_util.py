@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from procgen_torch import rng as R
+from procgen_torch import telemetry
 from procgen_torch.state import I32
 
 
@@ -41,6 +42,7 @@ def _rejection_pick(rs, in_set, high, active):
     for _ in range(16):
         hit = torch.gather(in_set, 1, nxt.to(torch.int64)[:, None])[:, 0]
         act = act & hit
+        telemetry.count("host_reads.rand_util.rejection_test")
         if not bool(act.any()):
             break
         rs, nxt2 = R.rs_randn(rs, high, active=act)

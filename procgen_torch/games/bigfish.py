@@ -15,6 +15,7 @@ import torch
 from procgen_torch import fmath as fm
 from procgen_torch import objects as O
 from procgen_torch import rng as R
+from procgen_torch import telemetry
 from procgen_torch.config import DistributionMode
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine.base import (
@@ -86,7 +87,7 @@ class BigFish(GameDef):
         return state.replace(ents=ents, extra=extra), rs
 
     def agent_collision_phase(self, cfg, state: EnvState) -> EnvState:
-        with torch.profiler.record_function(AGENT_SWEEP_SPAN):
+        with telemetry.span(AGENT_SWEEP_SPAN):
             return self._agent_sweep(cfg, state)
 
     def _agent_sweep(self, cfg, state: EnvState) -> EnvState:
@@ -97,6 +98,7 @@ class BigFish(GameDef):
         (live slots are a prefix of the table; a dead slot is never hit)."""
         ents = state.ents
         a = eo.AGENT
+        telemetry.count("host_reads.bigfish.sweep_width")
         L = int(ents.alive.sum(1).max())
         rx, ry = ents.rx.clone(), ents.ry.clone()
         will_erase = ents.will_erase.clone()

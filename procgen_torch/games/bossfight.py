@@ -20,6 +20,7 @@ import torch
 from procgen_torch import fmath as fm
 from procgen_torch import objects as O
 from procgen_torch import rng as R
+from procgen_torch import telemetry
 from procgen_torch.config import DistributionMode
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine.base import GameDef, base_game_reset, base_game_step, descending_slots
@@ -255,7 +256,7 @@ class Bossfight(GameDef):
             (t == PLAYER_BULLET) & ~ents.will_erase[:, :L] & touch)
         for k in range(n_max):
             state = self._bullet_hit(cfg, state, pair_mask, order[:, k], k < count)
-        with torch.profiler.record_function(BARRIER_SWEEP_SPAN):
+        with telemetry.span(BARRIER_SWEEP_SPAN):
             return self._barrier_sweep(state, pair_mask)
 
     def _bullet_hit(self, cfg, state, pair_mask, i, on):

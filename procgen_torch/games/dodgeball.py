@@ -19,6 +19,7 @@ import torch
 from procgen_torch import fmath as fm
 from procgen_torch import objects as O
 from procgen_torch import rng as R
+from procgen_torch import telemetry
 from procgen_torch.config import DistributionMode
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine.base import GameDef, base_game_reset, base_game_step, descending_slots
@@ -365,7 +366,7 @@ class Dodgeball(GameDef):
         extra["last_fire_time"] = torch.where(fire, state.cur_time, extra["last_fire_time"])
         state = state.replace(ents=ents, extra=extra)
 
-        with torch.profiler.record_function(ENEMY_SWEEP_SPAN):
+        with telemetry.span(ENEMY_SWEEP_SPAN):
             state = self._enemy_sweep(cfg, state)
 
         # the second erase_if_needed (dodgeball.cpp:487)

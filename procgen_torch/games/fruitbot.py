@@ -20,6 +20,7 @@ import torch
 from procgen_torch import fmath as fm
 from procgen_torch import objects as O
 from procgen_torch import rng as R
+from procgen_torch import telemetry
 from procgen_torch.config import DistributionMode
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine import rand_util as ru
@@ -231,6 +232,7 @@ class FruitBot(GameDef):
         order = torch.sort(torch.where(is_obj, slot, E + slot), dim=1, stable=True).indices
         count = is_obj.sum(1)
         theme = ents.image_theme
+        telemetry.count("host_reads.fruitbot.object_count")
         for k in range(int(count.max())):
             on = k < count
             rs, th = R.rs_randn(rs, self.object_group_size, active=on)

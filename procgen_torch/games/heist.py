@@ -20,6 +20,7 @@ import torch
 from procgen_torch import fmath as fm
 from procgen_torch import objects as O
 from procgen_torch import rng as R
+from procgen_torch import telemetry
 from procgen_torch.config import DistributionMode
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine.base import (
@@ -263,7 +264,7 @@ class HeistGame(GameDef):
         return state.replace(ents=ents, extra=extra), rs
 
     def agent_collision_phase(self, cfg, state: EnvState) -> EnvState:
-        with torch.profiler.record_function(AGENT_SWEEP_SPAN):
+        with telemetry.span(AGENT_SWEEP_SPAN):
             return self._agent_sweep(cfg, state)
 
     def _agent_sweep(self, cfg, state: EnvState) -> EnvState:
@@ -274,6 +275,7 @@ class HeistGame(GameDef):
         of the table)."""
         ents = state.ents
         a = eo.AGENT
+        telemetry.count("host_reads.heist.sweep_width")
         L = int(ents.alive.sum(1).max())
         has_keys = state.extra["has_keys"].clone()
         will_erase = ents.will_erase.clone()

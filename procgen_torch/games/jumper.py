@@ -22,6 +22,7 @@ import torch
 from procgen_torch import fmath as fm
 from procgen_torch import objects as O
 from procgen_torch import rng as R
+from procgen_torch import telemetry
 from procgen_torch.config import DistributionMode
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine import physics as ph
@@ -345,6 +346,7 @@ class Jumper(GameDef):
         prev = torch.full((N,), -2, dtype=torch.int64, device=dev)
         prev_placed = torch.zeros((N,), dtype=torch.bool, device=dev)
         placed = []
+        telemetry.count("host_reads.jumper.spike_cells")
         K = int(n_ok.max())
         for k in range(K):
             c = cells[:, k]
@@ -388,6 +390,7 @@ class Jumper(GameDef):
                     fire, O.SPACE, grid[b, yy.clamp(max=H - 1), x]
                 )
                 pos = torch.where(fire, c + 1, G)[:, None]
+            telemetry.count("host_reads.jumper.wall_test")
             if not bool((pos < G).any()):
                 return rs, grid
 
@@ -453,7 +456,7 @@ class Jumper(GameDef):
         )
         ents, _ = eo.append_entity(state.ents, gfields)
 
-        with torch.profiler.record_function(SCANS_SPAN):
+        with telemetry.span(SCANS_SPAN):
             rs, grid = self._place_spikes(rs, grid)
             rs, grid = self._fix_long_walls(rs, grid)
 

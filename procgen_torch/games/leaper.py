@@ -16,6 +16,7 @@ import torch
 from procgen_torch import fmath as fm
 from procgen_torch import objects as O
 from procgen_torch import rng as R
+from procgen_torch import telemetry
 from procgen_torch.config import DistributionMode
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine import physics as ph
@@ -273,7 +274,7 @@ class LeaperGame(GameDef):
         # slot (cars and logs are not smart, the frog's update does not move
         # it), one batched op group per iteration instead of the sub-steps'
         # two thousand.
-        with torch.profiler.record_function(PREROLL_SPAN):
+        with telemetry.span(PREROLL_SPAN):
             for _ in range(self.preroll_steps):
                 rs, state = self._spawn_entities(rs, state)
                 ents = state.ents

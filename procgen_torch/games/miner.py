@@ -15,6 +15,7 @@ import torch
 
 from procgen_torch import objects as O
 from procgen_torch import rng as R
+from procgen_torch import telemetry
 from procgen_torch.config import DistributionMode
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine import rand_util as ru
@@ -259,7 +260,7 @@ class MinerGame(GameDef):
         reward = state.reward + torch.where(obj_here == DIAMOND, DIAMOND_REWARD, 0.0)
         _set_cells(flat, here, (obj_here == DIRT) | (obj_here == DIAMOND), O.SPACE)
 
-        with torch.profiler.record_function(SWEEP_SPAN):
+        with telemetry.span(SWEEP_SPAN):
             flat, diamonds, crushed = self.gravity_sweep(flat, ay, new_ax, aiy * W + aix)
 
         extra = dict(state.extra)

@@ -21,6 +21,7 @@ import torch
 from procgen_torch import fmath as fm
 from procgen_torch import objects as O
 from procgen_torch import rng as R
+from procgen_torch import telemetry
 from procgen_torch.config import DistributionMode
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine.base import GameDef, base_game_reset, base_game_step, descending_slots
@@ -258,7 +259,7 @@ class StarPilot(GameDef):
 
     def game_reset(self, cfg, state: EnvState, rs):
         state, rs = base_game_reset(self, cfg, state, rs)
-        with torch.profiler.record_function(SPAWNERS_SPAN):
+        with telemetry.span(SPAWNERS_SPAN):
             extra, rs = self._spawners(cfg, state, rs)
         rs, agent_theme = R.rs_randn(rs, 1)  # choose_random_theme (one theme)
         ents = eo.write_slot(state.ents, eo.AGENT, rotation=fm.f32(PI / 2),
@@ -283,6 +284,7 @@ class StarPilot(GameDef):
         groups = []
         for _ in range(MAX_GROUPS):
             on = t <= SHOOTER_WIN_TIME
+            telemetry.count("host_reads.starpilot.spawner_test")
             if not bool(on.any()):
                 break
             rs, u_w = R.rs_rand01(rs, active=on)
@@ -477,6 +479,7 @@ def _cpp_sort_order(key: torch.Tensor, on: torch.Tensor) -> torch.Tensor:
     them), then the others; on the host."""
     from procgen_torch.utils.cppsort import std_sort_perm
 
+    telemetry.count("host_reads.starpilot.cpp_sort", 2)
     keys, live = key.cpu().numpy(), on.cpu().numpy()
     C = keys.shape[1]
     out = np.empty(keys.shape, np.int64)

@@ -32,9 +32,16 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from procgen_torch import resolve_device
+from procgen_torch import resolve_device, telemetry
 from procgen_torch.learn.nets import ImpalaCNN
 from procgen_torch.parallel import sharding
+
+
+# spans of the iteration's parts (procgen_torch.telemetry)
+ROLLOUT_SPAN = "procgen_torch.rollout"
+POLICY_SPAN = "procgen_torch.policy"
+GAE_SPAN = "procgen_torch.gae"
+UPDATE_SPAN = "procgen_torch.update"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,12 +205,13 @@ def rollout(net, fs, generator, ppo: PPOConfig, fast_step, render_fn, mesh=None)
         reward=torch.empty((T, n), device=dev),
         done=torch.empty((T, n), dtype=torch.bool, device=dev),
     )
-    with torch.no_grad():
+    with telemetry.span(ROLLOUT_SPAN), torch.no_grad():
         for t in range(T):
             obs = render_fn(fs.state)
             traj.obs[t] = obs
             traj.done[t] = fs.state.done
-            traj.action[t], traj.logp[t], traj.value[t] = policy(net, obs, generator, mesh)
+            with telemetry.span(POLICY_SPAN):
+                traj.action[t], traj.logp[t], traj.value[t] = policy(net, obs, generator, mesh)
             fs = fast_step(fs, traj.action[t])
             traj.reward[t] = fs.state.reward
         _, last_value = net(render_fn(fs.state))
@@ -289,6 +297,7 @@ def check_replicas(net, mesh) -> None:
     mine = param_checksum(net)
     root = sharding.broadcast(mine.clone(), mesh, 0)
     bad = sharding.all_reduce((mine != root).any().to(torch.int64).reshape(1), mesh)
+    telemetry.count("host_reads.ppo.replica_check")
     if int(bad):
         raise RuntimeError(f"parameters differ from rank 0's on {int(bad)} rank(s)")
 
@@ -330,9 +339,11 @@ def make_train_fns(gd, cfg, pack, ppo: PPOConfig, fast_step, render_fn, device="
         boundary is scored once, in full.  Returns (ts, fs, ep_acc, metrics
         dict of 0-d device tensors)."""
         fs, traj, last_value = rollout(ts.net, fs, generator, ppo, fast_step, render_fn, mesh)
-        adv, ret = gae(ppo, traj.reward, traj.value, traj.done, last_value, fs.state.done)
+        with telemetry.span(GAE_SPAN):
+            adv, ret = gae(ppo, traj.reward, traj.value, traj.done, last_value, fs.state.done)
         batch = (traj.obs, traj.action, traj.logp, traj.value, adv, ret)
-        loss, pg, vf, ent = update(ts, ppo, batch, generator, mesh)
+        with telemetry.span(UPDATE_SPAN):
+            loss, pg, vf, ent = update(ts, ppo, batch, generator, mesh)
         metrics = {"loss": loss, "pg_loss": pg, "v_loss": vf, "entropy": ent}
         if mesh is None:
             ep_acc, mean_ep_ret, n_eps = episode_stats(ep_acc, traj.reward, traj.done)

@@ -30,7 +30,7 @@ import types
 import numpy as np
 import torch
 
-from procgen_torch import resolve_device
+from procgen_torch import resolve_device, telemetry
 from procgen_torch.config import DistributionMode, EnvConfig
 from procgen_torch.engine.game import reset_env
 from procgen_torch.games import make_game
@@ -52,6 +52,7 @@ def stagger(state, rand_seed: int, num_envs: int | None = None, start: int = 0):
     global batch's, sliced."""
     st = np.random.RandomState(rand_seed + 0x5AFE)
     u = st.random_sample(num_envs or state.num_envs)[start:start + state.num_envs]
+    telemetry.count("host_reads.train.stagger")
     offs = (u * state.timeout.cpu().numpy()).astype(np.int32)
     return state.replace(cur_time=torch.from_numpy(offs).to(state.cur_time.device))
 
@@ -130,6 +131,7 @@ def main(argv=None):
         total_steps += args.num_envs * args.n_steps
         if (it + 1) % args.log_every == 0 and (mesh is None or mesh.rank == 0):
             # one device-host copy for all the metrics
+            telemetry.count("host_reads.train.metrics")
             values = torch.stack([v.to(torch.float64) for v in metrics.values()]).tolist()
             m = dict(zip(metrics, values))
             m.update(

@@ -9,7 +9,9 @@ levelgen cost scales with the episode-completion rate, not num_envs.
 
 The refill loop runs on the host: its test for a dying env costs one
 device sync per step (and, under a mesh, one all-reduce of the N refill
-scores).
+scores).  Under a profiler (``procgen_torch.telemetry``) the step, the
+refill and its two halves are spans, and the refill counts the rows it
+pregenerates and those it writes into an empty queue slot.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import dataclasses
 
 import torch
 
+from procgen_torch import telemetry
 from procgen_torch.engine.game import finish_step, reset_env, step_env_no_reset
 from procgen_torch.parallel import sharding
 from procgen_torch.render.fast2 import render_static2
@@ -36,6 +39,9 @@ _KEEP_FIELDS = (
 
 
 REFILL_SPAN = "procgen_torch.refill"
+LEVELGEN_SPAN = "procgen_torch.refill.levelgen"
+BAKE_SPAN = "procgen_torch.refill.bake"
+GAME_STEP_SPAN = "procgen_torch.game_step"
 
 
 @dataclasses.dataclass
@@ -58,8 +64,10 @@ def make_fast_fns(gd, cfg, pack, refill_bucket: int = 1024, mesh=None):
         raise ValueError("use_sequential_levels requires the inline reset path")
 
     def pregen(states: EnvState) -> EnvState:
-        states = update_view_params(gd, cfg, reset_env(gd, cfg, states))
-        return states.replace(static_layer=render_static2(gd, cfg, states, pack))
+        with telemetry.span(LEVELGEN_SPAN):
+            states = update_view_params(gd, cfg, reset_env(gd, cfg, states))
+        with telemetry.span(BAKE_SPAN):
+            return states.replace(static_layer=render_static2(gd, cfg, states, pack))
 
     def init(state: EnvState) -> FastState:
         n = state.num_envs
@@ -82,6 +90,8 @@ def make_fast_fns(gd, cfg, pack, refill_bucket: int = 1024, mesh=None):
         slots among them that were empty."""
         fresh = pregen(tree_map(lambda a: a[idx], fs.state))
         fill = ~fs.queue_valid[idx]  # only write slots that were empty
+        telemetry.count("refill.rows", idx.numel())
+        telemetry.count("refill.rows_used", fill)
 
         def scatter(qa, fa):
             out = qa.clone()
@@ -111,11 +121,12 @@ def make_fast_fns(gd, cfg, pack, refill_bucket: int = 1024, mesh=None):
             score = need.to(torch.int32) * 2 + (~fs.queue_valid).to(torch.int32)
             if mesh is not None:
                 (score,) = sharding.gather_rows([score], mesh)
+            telemetry.count("host_reads.fast.refill_test")
             if not bool((score >= 2).any()):  # score >= 2 iff need
                 return fs
-            # a profiler span (free when no profiler runs): chip_smoke.py
-            # reads the refill's share of the step from it
-            with torch.profiler.record_function(REFILL_SPAN):
+            # a span (one flag read when no profiler runs): chip_smoke.py
+            # and the benchmark read the refill's share of the step from it
+            with telemetry.span(REFILL_SPAN):
                 idx = torch.sort(-score, stable=True).indices[:min(refill_bucket, score.shape[0])]
                 if mesh is not None:
                     idx = idx[(idx >= start) & (idx < start + n)] - start
@@ -124,7 +135,9 @@ def make_fast_fns(gd, cfg, pack, refill_bucket: int = 1024, mesh=None):
                 need = need & ~fs.queue_valid
 
     def step(fs: FastState, actions) -> FastState:
-        stepped = step_env_no_reset(gd, cfg, fs.state, actions)
+        telemetry.count("fast.steps")
+        with telemetry.span(GAME_STEP_SPAN):
+            stepped = step_env_no_reset(gd, cfg, fs.state, actions)
         need = stepped.done & ~fs.queue_valid
         fs = refill_if_needed(FastState(stepped, fs.queue, fs.queue_valid), need)
 

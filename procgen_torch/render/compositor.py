@@ -20,7 +20,7 @@ import ctypes
 import numpy as np
 import torch
 
-from procgen_torch import cuda_build
+from procgen_torch import cuda_build, telemetry
 from procgen_torch.fmath import div_const
 
 RES = 64
@@ -32,7 +32,11 @@ launches = 0  # kernel launches since import (reset by callers that count)
 
 
 def _kmax_bound(kmax, E: int) -> int:
-    return E if kmax is None else min(E, int(kmax))
+    if kmax is None:
+        return E
+    if isinstance(kmax, torch.Tensor):
+        telemetry.count("host_reads.compositor.kmax")
+    return min(E, int(kmax))
 
 
 def _hull(t, ok):
@@ -82,6 +86,7 @@ def composite_entities_ref(tables, records, kmax, canvas, z_filter="all"):
         ok_all = ok_all & (field(recs, "z") < 0)
     elif z_filter == "nonneg":
         ok_all = ok_all & (field(recs, "z") >= 0)
+    telemetry.count("host_reads.compositor.rects")
     rects = torch.cat([_hull(axis(px, recs, "bbx0", "bbw"), ok_all),
                        _hull(axis(px, recs, "bby0", "bbh"), ok_all)], 1).tolist()
 

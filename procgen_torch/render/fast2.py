@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from procgen_torch import telemetry
 from procgen_torch.fmath import div_const, f32
 from procgen_torch.render import compositor
 from procgen_torch.render.renderer import (
@@ -32,6 +33,7 @@ from procgen_torch.render.renderer import (
 from procgen_torch.state import F32, I32
 
 TWO_PI = float(2 * np.pi)
+FRAME_SPAN = "procgen_torch.frame"
 
 # entity record layout (fast2._RF of the reference package)
 _RF = dict(
@@ -429,20 +431,22 @@ def render_frames2(gd, cfg, states, pack) -> torch.Tensor:
     composite runs the CUDA kernel for CUDA tensors: once per frame, or
     twice for grid-dynamic games, whose grid is drawn between the entities
     under it (z < 0) and the rest (fast2.py:670-680 of the reference
-    package), then the velocity patch and the HUD."""
-    tables = get_tables(gd, cfg, pack, states.done.device)
-    canvas = base_canvas(gd, cfg, states, tables)
-    records, kmax = entity_records(gd, cfg, states, tables)
-    records = _pad_records(records)
-    if gd.grid_dynamic:
-        canvas = compositor.composite_entities(tables, records, kmax, canvas, "neg")
-        canvas = grid_pass(gd, cfg, states, tables, canvas)
-        canvas = compositor.composite_entities(tables, records, kmax, canvas, "nonneg")
-    else:
-        canvas = compositor.composite_entities(tables, records, kmax, canvas)
-    canvas = _paint_vel_info(gd, cfg, states, canvas)
-    canvas = _paint_hud(gd, cfg, states, canvas)
-    return to_frames(canvas)
+    package), then the velocity patch and the HUD.  The span
+    ``procgen_torch.frame`` covers it."""
+    with telemetry.span(FRAME_SPAN):
+        tables = get_tables(gd, cfg, pack, states.done.device)
+        canvas = base_canvas(gd, cfg, states, tables)
+        records, kmax = entity_records(gd, cfg, states, tables)
+        records = _pad_records(records)
+        if gd.grid_dynamic:
+            canvas = compositor.composite_entities(tables, records, kmax, canvas, "neg")
+            canvas = grid_pass(gd, cfg, states, tables, canvas)
+            canvas = compositor.composite_entities(tables, records, kmax, canvas, "nonneg")
+        else:
+            canvas = compositor.composite_entities(tables, records, kmax, canvas)
+        canvas = _paint_vel_info(gd, cfg, states, canvas)
+        canvas = _paint_hud(gd, cfg, states, canvas)
+        return to_frames(canvas)
 
 
 def render_static2(gd, cfg, states, pack) -> torch.Tensor:

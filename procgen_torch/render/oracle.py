@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from procgen_torch import fmath as fm
+from procgen_torch import telemetry
 from procgen_torch.render.fast2 import TWO_PI, get_tables
 from procgen_torch.render.renderer import (
     _CELL_DIV,
@@ -298,6 +299,7 @@ def _entity_records(gd, cfg, states, tables):
     slots = torch.arange(E, device=dev)
     zb = torch.clamp(ents.render_z, -1, 1).to(_I64) + 1
     order = torch.argsort(torch.where(ok, zb * E + slots, 4 * E + slots), dim=1)
+    telemetry.count("host_reads.oracle.kmax")
     return {f: rec[f].gather(1, order) for f in _FIELDS}, int(ok.sum(1).max())
 
 

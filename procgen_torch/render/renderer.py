@@ -30,6 +30,7 @@ import torch
 
 from procgen_torch import fmath as fm
 from procgen_torch import objects as O
+from procgen_torch import telemetry
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.state import F32, I32, EnvState
 
@@ -385,6 +386,7 @@ def _composite_entities_gather(gd, cfg, states, tables, out, z_filter="all", res
     narrowed (``fmath.sincos64``), the same bits on the CPU and the card."""
     ents = states.ents
     order = _entity_draw_order(ents)
+    telemetry.count("host_reads.renderer.kmax")
     kmax = int(ents.alive.sum(1).max())
     if kmax == 0:
         return out
@@ -553,6 +555,7 @@ def _composite_entities_matmul(gd, cfg, states, pack, out, z_filter="all"):
     ents = states.ents
     order = _entity_draw_order(ents)
     n_draw = ents.alive.sum(1)
+    telemetry.count("host_reads.renderer.kmax")
     kmax = int(n_draw.max())
     px = torch.arange(RES, dtype=F32, device=out.device) + 0.5
     draw_mask = gd.entity_draw_mask(cfg, states)
@@ -724,6 +727,7 @@ def render_frames(gd, cfg, states, pack) -> torch.Tensor:
     else:
         out = states.static_layer.to(F32)
     order = _entity_draw_order(ents)
+    telemetry.count("host_reads.renderer.kmax")
     kmax = int(ents.alive.sum(1).max())
     draw_mask = gd.entity_draw_mask(cfg, states)
     img_override = gd.entity_image_override(cfg, states)
