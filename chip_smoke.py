@@ -15,6 +15,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
    box edges on pixel centres and one ulp off, sizes of 1e-6, boxes at
    +-1e6 and off screen, tiled boxes, overlapping records of different z,
    a canvas half exactly 0, kmax 0, 1 and E, every z_filter): bitwise equal;
+   the maze kernels (``generate_kernel``, ``place_kernel`` of
+   ``csrc/mazegen.cu``) against ``mazegen.generate_maze_ref`` and
+   ``place_objects_ref`` on the same card tensors at 512 and 4096 rows,
+   max_dim 25 (maze hard) and 31 (maze memory): grid, free cells, their
+   count and the cursor bitwise equal; each kernel's device ms per launch
+   (profiler), the plain version's ms per call, one env of the largest
+   size alone (the kernel's dependent chain, measured) and the bytes it
+   moves;
 3. the double cos/sin of a float angle (caveflyer's ship), ``fmath.dsincos``:
    on 2^24 float32 angles in [-300, 300] the card's bits against the CPU's
    (must be equal), and the count of angles where torch's own float64
@@ -60,7 +68,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
       rendered steps with random actions (leaper 2: its resets
       pre-roll 300 physics steps); the kernel's
       launches counted from 0 just before and read just after (launches ==
-      frames, or 2 x frames for grid-dynamic games), frames not black;
+      frames, or 2 x frames for grid-dynamic games), frames not black; the
+      maze kernels' launches counted the same way (2 per refill pass on
+      maze, 1 on chaser, jumper and heist, 0 elsewhere; the passes are the
+      cold start's and ceil(need / bucket) a step);
    c. the final frames through the kernel and through the plain version,
       in each z pass, bitwise equal, each pass's input canvas >= +0 (the
       kernel skips pixels outside a record's box, which is exact only
@@ -151,8 +162,8 @@ prints which root it used), else a synthetic root
 at the start; the fractional-alpha root of phase 2 goes there too, and the
 directory is removed at the end.
 
-The last three lines are the card's name and power limit, the kernels line,
-and ``{"ok": true, "device": {...}}``.  The script needs CUDA; without it, it
+The last three lines are the card's name and power limit, the kernels line
+(the compositor, then the two maze kernels), and ``{"ok": true, "device": {...}}``.  The script needs CUDA; without it, it
 exits non-zero and prints no result.
 """
 
@@ -178,6 +189,8 @@ import torch
 
 from procgen_torch import convert, cuda_build
 from procgen_torch import fmath as fm
+from procgen_torch import rng as R
+from procgen_torch import telemetry
 from procgen_torch.bench import ref_parity, synth_assets, throughput
 from procgen_torch.bench.profiling import profiled
 from procgen_torch.config import DistributionMode, EnvConfig
@@ -185,6 +198,7 @@ from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine.base import AGENT_SWEEP_SPAN, PAIRS_SPAN
 from procgen_torch.engine.entity_ops import REPOSITION_SPAN
 from procgen_torch.engine.game import step_env_no_reset
+from procgen_torch.engine.levelgen import mazegen
 from procgen_torch.engine.levelgen.mazegen import DOORS_SPAN
 from procgen_torch.engine.levelgen.roomgen import FIND_PATH_SPAN
 from procgen_torch.engine.physics import REFLECT_SPAN
@@ -244,6 +258,14 @@ PNG_CARD_VS_CPU = (("coinrun", "hard"), ("maze", "hard"))
 # the sprite drawn with fractional alpha in the pack-atlas kernel case
 FRACTIONAL_SPRITES = ("misc_assets/fishTile_072.png",)
 TRIG_ANGLES = 1 << 24
+# the maze kernels' cases (rows, max_dim): maze hard's refill bucket and
+# its main path's cold start, and maze memory's max_dim, the kernels' largest
+MAZEGEN_CASES = ((BUCKET, 25), (N_ENVS, 25), (BUCKET, 31), (N_ENVS, 31))
+MAZE_GOAL = 2  # games/maze.py: GOAL, the object maze places
+# maze kernel launches per refill pass of the main paths that generate a
+# maze: maze's maze and goal, chaser's and jumper's through
+# generate_maze_no_dead_ends, heist's through generate_maze_with_doors
+MAZEGEN_PER_PASS = {"maze": 2, "chaser": 1, "jumper": 1, "heist": 1}
 
 
 T0 = time.perf_counter()
@@ -333,7 +355,10 @@ REFILL_SPANS = {"preroll": PREROLL_SPAN, "levelgen_scans": SCANS_SPAN,
 STEP_SPANS = {"pair_collisions": PAIRS_SPAN, "entity_reflect": REFLECT_SPAN,
               "enemy_sweep": ENEMY_SWEEP_SPAN, "agent_sweep": AGENT_SWEEP_SPAN,
               "barrier_sweep": BARRIER_SWEEP_SPAN}
-SPANS = (REFILL_SPAN, FRAME_SPAN, SWEEP_SPAN, *REFILL_SPANS.values(), *STEP_SPANS.values())
+# the program's own spans too: the summary counts only ops whose enclosing
+# events are all spans it knows
+SPANS = tuple(dict.fromkeys((REFILL_SPAN, FRAME_SPAN, SWEEP_SPAN, *REFILL_SPANS.values(),
+                             *STEP_SPANS.values(), *telemetry.SPANS)))
 
 
 def phase_kernels_vs_plain(dev):
@@ -438,6 +463,107 @@ def phase_kernels_vs_plain_fractional(dev, tmp):
     finally:
         os.environ[assets.ROOT_ENV] = saved
         assets.clear_caches()
+
+
+def maze_levels(dev, rows: int, max_dim: int, seed: int):
+    """A batch of maze levels' draws as maze's reset makes them: a block of
+    ``reset_max_draws`` per row and odd sizes 3..max_dim, row 0 the
+    largest."""
+    rs = np.random.RandomState(seed)
+    seeds = torch.as_tensor(rs.randint(0, 2**31 - 1, size=rows).astype(np.int32), device=dev)
+    dims = rs.randint(0, (max_dim - 1) // 2, size=rows) * 2 + 3
+    dims[0] = max_dim
+    draws = make_game(game_cfg("maze", "hard", rows)).reset_max_draws
+    return R.mt_block_open(R.mt_seed(seeds), draws), torch.as_tensor(dims, dtype=torch.int32,
+                                                                     device=dev)
+
+
+MAZEGEN_LAUNCHES = 20
+
+
+def kernel_device_ms_of(fn, kernel: str) -> float:
+    """The device ms per launch of ``kernel`` over MAZEGEN_LAUNCHES calls of
+    ``fn`` (after a warm-up), from a profiler window: the kernel's own time,
+    where events would time the host's pace of a short launch."""
+    fn()
+
+    def calls():
+        for _ in range(MAZEGEN_LAUNCHES):
+            fn()
+
+    _, w = profiled(calls, ())
+    device_ns = [v for k, v in w["kernels"].items() if kernel in k]
+    if not device_ns:
+        raise AssertionError(f"the profiler saw no {kernel} launch")
+    return sum(device_ns) / 1e6 / MAZEGEN_LAUNCHES
+
+
+def mazegen_timing(gen, place, plain_gen, plain_place, one_gen, one_place, nbytes) -> dict:
+    """Each maze kernel's device ms per launch, its plain version's ms per
+    call (its eager ops, on CUDA events), and its floor: the larger of one
+    env of the largest size alone (its dependent chain, measured) and its
+    bytes at the card's bandwidth."""
+    out = {}
+    for name, kern, plain, one in (("generate", gen, plain_gen, one_gen),
+                                   ("place", place, plain_place, one_place)):
+        chain_ms = kernel_device_ms_of(one, f"{name}_kernel")
+        bytes_ms = nbytes[name] / PEAK_BYTES_PER_S * 1e3
+        bound_ms, bound_by = max((bytes_ms, "bytes"), (chain_ms, "chain"))
+        out[name] = dict(kernel_ms=kernel_device_ms_of(kern, f"{name}_kernel"),
+                         plain_ms=cuda_ms(plain, 1), bound_ms=bound_ms, bound_by=bound_by,
+                         chain_ms=chain_ms, bytes=nbytes[name], bytes_bound_ms=bytes_ms)
+    return out
+
+
+def phase_mazegen_vs_plain(dev) -> dict:
+    """The maze kernels against their plain versions on the same card
+    tensors at MAZEGEN_CASES: grid, free cells, their count and the cursor
+    after ``generate_maze`` and after ``place_objects`` (maze's goal),
+    bitwise, in two launches; then ``mazegen_timing``.  Returns each case's
+    timings by kernel."""
+    cases = {}
+    for rows, max_dim in MAZEGEN_CASES:
+        blk, dims = maze_levels(dev, rows, max_dim, seed=rows + max_dim)
+        before = mazegen.launches
+        k = mazegen.generate_maze(blk, dims, max_dim)
+        k_rs, k_placed = mazegen.place_objects(k.rng, k, MAZE_GOAL, 1, dims, max_dim)
+        launched = mazegen.launches - before
+        p = mazegen.generate_maze_ref(blk, dims, max_dim)
+        p_rs, p_placed = mazegen.place_objects_ref(p.rng, p, MAZE_GOAL, 1, dims, max_dim)
+        torch.cuda.synchronize()
+        pairs = dict(grid=(k.grid, p.grid), free_cells=(k.free_cells, p.free_cells),
+                     num_free_cells=(k.num_free_cells, p.num_free_cells),
+                     cursor=(k.rng.cursor, p.rng.cursor), placed_grid=(k_placed.grid, p_placed.grid),
+                     placed_free_cells=(k_placed.free_cells, p_placed.free_cells),
+                     placed_cursor=(k_rs.cursor, p_rs.cursor))
+        differ = [name for name, (a, b) in pairs.items() if not torch.equal(a, b)]
+        if differ or launched != 2:
+            raise AssertionError(f"maze kernels vs plain at ({rows}, {max_dim}): {differ} differ, "
+                                 f"{launched} launches")
+        one_blk, one_dims = maze_levels(dev, 1, max_dim, seed=max_dim)
+        one = mazegen.generate_maze(one_blk, one_dims, max_dim)
+        # bytes each kernel moves at least: the draws it reads and 16 bytes
+        # of size, count and cursors a row; generate writes the whole grid
+        # and free-cell rows, place reads a free cell a draw and writes the
+        # goal's cell
+        drawn = int((k.rng.cursor - blk.cursor).sum()), int((k_rs.cursor - k.rng.cursor).sum())
+        AD = max_dim + 2
+        nbytes = dict(generate=drawn[0] * 8 + rows * (16 + (AD * AD + max_dim * max_dim) * 4),
+                      place=drawn[1] * 12 + rows * 20)
+        t = mazegen_timing(
+            lambda: mazegen.generate_maze(blk, dims, max_dim),
+            lambda: mazegen.place_objects(k.rng, k, MAZE_GOAL, 1, dims, max_dim),
+            lambda: mazegen.generate_maze_ref(blk, dims, max_dim),
+            lambda: mazegen.place_objects_ref(k.rng, k, MAZE_GOAL, 1, dims, max_dim),
+            lambda: mazegen.generate_maze(one_blk, one_dims, max_dim),
+            lambda: mazegen.place_objects(one.rng, one, MAZE_GOAL, 1, one_dims, max_dim),
+            nbytes)
+        for rec in t.values():
+            rec.update(records=[rows, max_dim])
+        cases[f"{rows}x{max_dim}"] = t
+        emit("mazegen_vs_plain", rows=rows, max_dim=max_dim, bitwise_equal=True,
+             checked=list(pairs), draws_read=list(drawn), **t)
+    return cases
 
 
 def phase_trig(dev):
@@ -599,6 +725,7 @@ def phase_main_path(dev, game, mode, timed_steps, generated=True):
     checksum = torch.zeros((), dtype=torch.int64, device=dev)
 
     compositor.launches = 0  # counts start here: this main path's run
+    mazegen.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fs = init.cold(seeded_template(gd, cfg, N_ENVS, device=dev))
@@ -609,6 +736,7 @@ def phase_main_path(dev, game, mode, timed_steps, generated=True):
     first_step_ends = torch.zeros((), dtype=torch.int64, device=dev)  # episodes of 1 step
     reward_sum = torch.zeros((), dtype=torch.float64, device=dev)
     refills = torch.zeros((), dtype=torch.int64, device=dev)  # timed steps only
+    step_refills = torch.zeros((), dtype=torch.int64, device=dev)  # every step
     for t in range(steps):
         if t == WARMUP:
             torch.cuda.synchronize()
@@ -617,11 +745,13 @@ def phase_main_path(dev, game, mode, timed_steps, generated=True):
         valid_before, fresh = fs.queue_valid, fs.state.cur_time == 0
         fs = step(fs, acts)
         first_step_ends += (fs.state.done & fresh).sum()
+        # the step's refill loop ran ceil(need / bucket) bucket refills,
+        # need = envs that finished with an empty queue entry
+        need = (fs.state.done & ~valid_before).sum()
+        step_passes = torch.div(need + BUCKET - 1, BUCKET, rounding_mode="floor")
+        step_refills += step_passes
         if t >= WARMUP:
-            # the step's refill loop ran ceil(need / bucket) bucket refills,
-            # need = envs that finished with an empty queue entry
-            need = (fs.state.done & ~valid_before).sum()
-            refills += torch.div(need + BUCKET - 1, BUCKET, rounding_mode="floor")
+            refills += step_passes
         obs = fast2.render_frames2(gd, cfg, fs.state, pack)
         frames_rendered += 1
         checksum += obs[:, 31, 31, :].to(torch.int64).sum()
@@ -632,10 +762,16 @@ def phase_main_path(dev, game, mode, timed_steps, generated=True):
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t_loop
     launches = compositor.launches  # counts read here
+    maze_launches = mazegen.launches
     if launches != passes(gd) * frames_rendered:
         raise AssertionError(
             f"{game}: compositor launches {launches} != {passes(gd)} x {frames_rendered} frames"
         )
+    # the cold start's refill passes, then the steps'
+    refill_passes = -(-N_ENVS // BUCKET) + int(step_refills)
+    if maze_launches != MAZEGEN_PER_PASS.get(game, 0) * refill_passes:
+        raise AssertionError(f"{game}: maze kernel launches {maze_launches} != "
+                             f"{MAZEGEN_PER_PASS.get(game, 0)} x {refill_passes} refill passes")
     if min(black) < 0.9:
         raise AssertionError(f"{game}: frames look black: non-zero share {black}")
     if not torch.isfinite(fs.state.ents.x).all() or not torch.isfinite(fs.state.reward).all():
@@ -646,6 +782,7 @@ def phase_main_path(dev, game, mode, timed_steps, generated=True):
          refill_bucket=BUCKET, pack_build_s=pack_s, cold_start_s=cold_s,
          timed_steps=timed_steps, env_steps_per_s=sps, launches=launches,
          launches_per_frame=passes(gd), frames=frames_rendered,
+         mazegen_launches=maze_launches, refill_passes=refill_passes,
          episodes_ended=int(episodes), episodes_ended_on_first_step=int(first_step_ends),
          reward_sum=float(reward_sum),
          nonzero_pixel_share=black, checksum=int(checksum))
@@ -653,6 +790,8 @@ def phase_main_path(dev, game, mode, timed_steps, generated=True):
     return types.SimpleNamespace(
         game=game, mode=mode, gd=gd, cfg=cfg, pack=pack, fs=fs, init=init, step=step,
         gen=gen, launches=launches, sps=sps, refills_per_step=refills_per_step,
+        mazegen=dict(launches=maze_launches, refill_passes=refill_passes,
+                     launches_per_pass=MAZEGEN_PER_PASS.get(game, 0)),
     )
 
 
@@ -1691,6 +1830,43 @@ def phase_sharded(dev, worker):
     return dict(path_record(kern, launches, run.err), assets="png")
 
 
+def mazegen_kernels(cases: dict, paths: dict) -> list:
+    """The maze kernels' entries of the kernels line: the times of the first
+    of MAZEGEN_CASES at the top, every case's and each main path's launches
+    in ``per_path``.  A refill pass launches ``generate_kernel`` once on
+    every path in MAZEGEN_PER_PASS and ``place_kernel`` once on maze (the
+    main path checked their sum)."""
+    first = cases[f"{MAZEGEN_CASES[0][0]}x{MAZEGEN_CASES[0][1]}"]
+    out = []
+    for name, kernel, part, nth in (("generate_maze", "generate_kernel", "generate", 1),
+                                    ("place_objects", "place_kernel", "place", 2)):
+        on_path = {p: dict(launches=r["refill_passes"] * (r["launches_per_pass"] >= nth),
+                           refill_passes=r["refill_passes"]) for p, r in paths.items()}
+        out.append({
+            "name": name,
+            "kernel": kernel,
+            "route": "cuda",
+            "source": "procgen_torch/csrc/mazegen.cu",
+            "replaces": None,  # the JAX package ran this loop under jit
+            "tpu_source": None,
+            "launches": sum(p["launches"] for p in on_path.values()),
+            "bitwise_equal": True,
+            "max_abs_err": 0,
+            "ms": first[part]["kernel_ms"],
+            "plain_ms": first[part]["plain_ms"],
+            "bound_ms": first[part]["bound_ms"],
+            "bound_by": first[part]["bound_by"],
+            "library_ms": None,
+            "per_path": {**{c: dict(ms=t[part]["kernel_ms"], plain_ms=t[part]["plain_ms"],
+                                    bound_ms=t[part]["bound_ms"], bound_by=t[part]["bound_by"],
+                                    chain_ms=t[part]["chain_ms"],
+                                    bytes_bound_ms=t[part]["bytes_bound_ms"],
+                                    records=t[part]["records"])
+                            for c, t in cases.items()}, **on_path},
+        })
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -1712,12 +1888,15 @@ def main() -> int:
         phase_assets(tmp)
         phase_kernels_vs_plain(dev)
         phase_kernels_vs_plain_fractional(dev, tmp)
+        maze_cases = phase_mazegen_vs_plain(dev)
         phase_trig(dev)
-        per_path = {}
+        per_path, maze_paths = {}, {}
         with cpu_worker() as worker:
             for game, mode, timed_steps, generated in PATHS:
                 phase_card_vs_cpu(dev, game, mode, worker, generated)
                 run = phase_main_path(dev, game, mode, timed_steps, generated)
+                if game in MAZEGEN_PER_PASS:
+                    maze_paths[f"{game}-{mode}"] = run.mazegen
                 phase_final_frames(run, dev)
                 per_path[f"{game}-{mode}"] = dict(phase_timing(run, dev),
                                                   assets=asset_kind(generated))
@@ -1757,7 +1936,7 @@ def main() -> int:
         "bound_by": first["bound_by"],
         "library_ms": None,
         "per_path": per_path,
-    }]}), flush=True)
+    }] + mazegen_kernels(maze_cases, maze_paths)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -7,7 +7,7 @@ Counts the torch ops (aten ops that no other op encloses; each launches one
 or more kernels on a card) of one refill at ``--envs`` envs (the refill
 bucket), of one game step and of one frame, with the profiler's host
 activity (procgen_torch/bench/profiling.py), and those inside the named
-spans of the refill (leaper's pre-roll, jumper's scans, the path search,
+spans of the refill (its levelgen half, leaper's pre-roll, jumper's scans, the path search,
 reposition's retries, heist's maze with doors, starpilot's spawner
 timeline) and of the step (miner's sweep, pair collisions, the
 entity-reflect sweep, dodgeball's enemy sweep, bigfish's and heist's
@@ -29,6 +29,7 @@ import tempfile
 
 import torch
 
+from procgen_torch import telemetry
 from procgen_torch.bench import synth_assets
 from procgen_torch.bench.profiling import profiled
 from procgen_torch.config import DistributionMode, EnvConfig
@@ -45,20 +46,23 @@ from procgen_torch.games.jumper import SCANS_SPAN
 from procgen_torch.games.leaper import PREROLL_SPAN
 from procgen_torch.games.miner import SWEEP_SPAN
 from procgen_torch.games.starpilot import SPAWNERS_SPAN
-from procgen_torch.parallel.fast import REFILL_SPAN, make_fast_fns
+from procgen_torch.parallel.fast import LEVELGEN_SPAN, REFILL_SPAN, make_fast_fns
 from procgen_torch.render import assets, fast2
 from procgen_torch.render.pack import RenderPack
 from procgen_torch.state import seeded_template
 
 STEP_SPAN, FRAME_SPAN = "op_counts.game_step", "op_counts.frame"
 # spans inside a refill and inside a game step, by the name of their count
-REFILL_SPANS = {"preroll": PREROLL_SPAN, "levelgen_scans": SCANS_SPAN,
+REFILL_SPANS = {"levelgen": LEVELGEN_SPAN, "preroll": PREROLL_SPAN, "levelgen_scans": SCANS_SPAN,
                 "find_path": FIND_PATH_SPAN, "reposition": REPOSITION_SPAN,
                 "maze_doors": DOORS_SPAN, "spawners": SPAWNERS_SPAN}
 STEP_SPANS = {"sweep": SWEEP_SPAN, "pair_collisions": PAIRS_SPAN,
               "entity_reflect": REFLECT_SPAN, "enemy_sweep": ENEMY_SWEEP_SPAN,
               "agent_sweep": AGENT_SWEEP_SPAN, "barrier_sweep": BARRIER_SWEEP_SPAN}
-SPANS = (REFILL_SPAN, STEP_SPAN, FRAME_SPAN, *REFILL_SPANS.values(), *STEP_SPANS.values())
+# the program's own spans too: the summary counts only ops whose enclosing
+# events are all spans it knows
+SPANS = tuple(dict.fromkeys((REFILL_SPAN, STEP_SPAN, FRAME_SPAN, *REFILL_SPANS.values(),
+                             *STEP_SPANS.values(), *telemetry.SPANS)))
 
 
 def main() -> None:

@@ -2,8 +2,10 @@
 
 Each source under ``procgen_torch/csrc`` compiles into its own shared
 library under ``procgen_torch/_build/`` at first use: the CUDA kernels with
-``nvcc``, the PNG decoder's host-side unfilter with ``g++``.  The file name
-carries a hash of the source and flags, so an edited source is rebuilt.
+``nvcc`` (all of them together, when the first is loaded), the PNG
+decoder's host-side unfilter and the host build of the maze kernels' code
+with ``g++``.  The file name carries a hash of the source, the headers it
+includes from ``csrc`` and the flags, so an edited source is rebuilt.
 Nothing here runs at import time.
 """
 
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,7 +27,9 @@ BUILD = PKG / "_build"
 # library name -> (source file under csrc/, compiler)
 SOURCES = {
     "compositor": ("compositor.cu", "nvcc"),
+    "mazegen": ("mazegen.cu", "nvcc"),
     "png_unfilter": ("png_unfilter.cpp", "g++"),
+    "mazegen_host": ("mazegen_host.cpp", "g++"),
 }
 
 NVCC_FLAGS = [
@@ -54,9 +59,17 @@ def _flags(name: str) -> list:
     return NVCC_FLAGS if SOURCES[name][1] == "nvcc" else GXX_FLAGS
 
 
+def _local_includes(src: bytes) -> bytes:
+    """The bytes of the ``csrc`` headers that ``src`` includes by name."""
+    names = re.findall(rb'^#include "([^"]+)"', src, re.M)
+    return b"".join((CSRC / n.decode()).read_bytes() for n in names)
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / SOURCES[name][0]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:12]
+    digest = hashlib.sha256(
+        src + _local_includes(src) + " ".join(_flags(name)).encode()
+    ).hexdigest()[:12]
     return BUILD / f"lib{name}-{digest}.so"
 
 
@@ -97,8 +110,10 @@ def build_all(names=None) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The shared library ``name``, built first if needed."""
+    """The shared library ``name``, built first if needed.  Loading a CUDA
+    library builds every CUDA library that is not built yet, in parallel."""
     if name not in _LIBS:
-        build_all([name])
+        kind = SOURCES[name][1]
+        build_all([n for n in SOURCES if SOURCES[n][1] == kind] if kind == "nvcc" else [name])
         _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return _LIBS[name]

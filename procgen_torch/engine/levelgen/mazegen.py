@@ -13,21 +13,26 @@ axis B.
 
 Loop trip counts are fixed (W_MAX iterations, inactive tail masked) and
 draws are masked, so each env consumes exactly the reference's stream.
-The door variant (mazegen.cpp:211-289, ``generate_maze_with_doors``) runs
-its breadth-first searches as loops of batched mask dilations.
+That is the plain version (``generate_maze_ref``, ``place_objects_ref``),
+which CPU tensors run.  For CUDA tensors ``generate_maze`` and
+``place_objects`` launch the kernels of ``procgen_torch/csrc/mazegen.cu``
+(one thread per env; same draws, same bits) or raise; ``launches`` counts
+them.  The door variant (mazegen.cpp:211-289, ``generate_maze_with_doors``)
+runs its breadth-first searches as loops of batched mask dilations.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
 import numpy as np
 import torch
 
+from procgen_torch import cuda_build, telemetry
 from procgen_torch import objects as O
 from procgen_torch import rng as R
-from procgen_torch import telemetry
 from procgen_torch.engine.rand_util import choose_n_erase, choose_nth_masked, first_true
 from procgen_torch.state import I32
 
@@ -36,6 +41,9 @@ DOORS_SPAN = "procgen_torch.mazegen.doors"
 # how many rounds a search runs between host reads of whether any env is
 # still searching (each read synchronizes the stream)
 _SYNC_EVERY = 4
+KERNEL_MAX_DIM = 31  # mazegen.cuh: MAX_DIM
+
+launches = 0  # kernel launches since import (reset by callers that count)
 
 
 @dataclasses.dataclass
@@ -107,7 +115,7 @@ def _set_free_cell(grid, free_cells, in_free_set, num_free, md, x, y, do):
     return num_free + is_new.to(I32)
 
 
-def generate_maze(rs: R.MTBlock, maze_dim, max_dim: int) -> MazeResult:
+def generate_maze_ref(rs: R.MTBlock, maze_dim, max_dim: int) -> MazeResult:
     """mazegen.cpp:112-187 for a batch; ``maze_dim`` (B,) odd, 3..max_dim."""
     dev = rs.cursor.device
     B = rs.cursor.shape[0]
@@ -351,7 +359,7 @@ def _generate_maze_with_doors(rs, num_doors, maze_dim, max_dim: int, max_doors: 
     return rs, flat.reshape(B, AD, AD)
 
 
-def place_objects(
+def place_objects_ref(
     rs: R.MTBlock,
     res: MazeResult,
     start_obj: int,
@@ -388,3 +396,98 @@ def place_objects(
         cy = torch.div(cell, md, rounding_mode="floor") + MAZE_OFFSET
         grid[b, cy.to(torch.int64), cx.to(torch.int64)] = start_obj + j
     return rs, res.replace(grid=grid, free_cells=free_cells)
+
+
+def _lib():
+    lib = cuda_build.load("mazegen")
+    if lib.mazegen_generate_launch.argtypes is None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        lib.mazegen_generate_launch.argtypes = [ptr] * 3 + [i] * 5 + [ptr] * 5
+        lib.mazegen_place_launch.argtypes = [ptr] * 4 + [i] * 6 + [ptr] * 4
+        lib.mazegen_generate_launch.restype = i
+        lib.mazegen_place_launch.restype = i
+    return lib
+
+
+def _kernel_inputs(rs, maze_dim, max_dim: int, name: str):
+    """Check the block and ``maze_dim`` for a kernel; returns (vals,
+    maze_dim as contiguous int32, stream)."""
+    dev = rs.cursor.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if not 1 <= max_dim <= KERNEL_MAX_DIM:
+        raise ValueError(f"{name}: max_dim {max_dim} is outside 1..{KERNEL_MAX_DIM}")
+    vals = rs.vals.contiguous()
+    B = rs.cursor.shape[0]
+    if vals.dim() != 2 or vals.shape[0] != B or vals.dtype != torch.int64 or vals.device != dev:
+        raise ValueError(f"{name}: block values {tuple(vals.shape)} {vals.dtype} on {vals.device}")
+    if rs.cursor.dtype != I32 or not rs.cursor.is_contiguous():
+        raise ValueError(f"{name}: the block cursor must be a contiguous int32 (B,) tensor")
+    md = torch.as_tensor(maze_dim, device=dev).to(I32).contiguous()
+    if md.shape != (B,):
+        raise ValueError(f"{name}: maze_dim {tuple(md.shape)} is not ({B},)")
+    return vals, md, torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launched(name: str, rc: int, rows: int) -> None:
+    global launches
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (error {rc})")
+    launches += 1
+    telemetry.count("mazegen.kernel_rows", rows)
+
+
+def generate_maze(rs: R.MTBlock, maze_dim, max_dim: int) -> MazeResult:
+    """mazegen.cpp:112-187 for a batch; ``maze_dim`` (B,) 1..max_dim.  CPU
+    tensors run ``generate_maze_ref``; CUDA tensors launch the kernel
+    (``max_dim`` at most ``KERNEL_MAX_DIM``)."""
+    if rs.cursor.device.type == "cpu":
+        return generate_maze_ref(rs, maze_dim, max_dim)
+    vals, md, stream = _kernel_inputs(rs, maze_dim, max_dim, "generate_maze")
+    B, D = vals.shape
+    AD = max_dim + 2
+    dev = vals.device
+    grid = torch.empty((B, AD, AD), dtype=I32, device=dev)
+    free_cells = torch.empty((B, max_dim * max_dim), dtype=I32, device=dev)
+    num_free = torch.empty((B,), dtype=I32, device=dev)
+    cursor = torch.empty_like(rs.cursor)
+    rc = _lib().mazegen_generate_launch(
+        vals.data_ptr(), rs.cursor.data_ptr(), md.data_ptr(), B, D, max_dim,
+        O.WALL_OBJ, O.SPACE, grid.data_ptr(), free_cells.data_ptr(),
+        num_free.data_ptr(), cursor.data_ptr(), stream,
+    )
+    _launched("generate_maze", rc, B)
+    return MazeResult(rs.replace(cursor=cursor), grid, free_cells, num_free)
+
+
+def place_objects(
+    rs: R.MTBlock,
+    res: MazeResult,
+    start_obj: int,
+    num_objs: int,
+    maze_dim,
+    max_dim: int,
+    max_tries: int = 32,
+):
+    """mazegen.cpp:292-306, as ``place_objects_ref`` (which CPU tensors
+    run); CUDA tensors launch the kernel, which writes the objects into
+    copies of ``res.grid`` and ``res.free_cells``."""
+    if rs.cursor.device.type == "cpu":
+        return place_objects_ref(rs, res, start_obj, num_objs, maze_dim, max_dim, max_tries)
+    vals, md, stream = _kernel_inputs(rs, maze_dim, max_dim, "place_objects")
+    B, D = vals.shape
+    AD = max_dim + 2
+    grid = res.grid.to(I32).contiguous().clone()
+    free_cells = res.free_cells.to(I32).contiguous().clone()
+    num_free = res.num_free_cells.to(I32).contiguous()
+    shapes = [(grid, (B, AD, AD)), (free_cells, (B, max_dim * max_dim)), (num_free, (B,))]
+    if any(t.shape != shape or t.device != vals.device for t, shape in shapes):
+        raise ValueError("place_objects: the maze result does not match the block and max_dim")
+    cursor = torch.empty_like(rs.cursor)
+    rc = _lib().mazegen_place_launch(
+        vals.data_ptr(), rs.cursor.data_ptr(), md.data_ptr(), num_free.data_ptr(), B, D,
+        max_dim, start_obj, num_objs, max_tries, grid.data_ptr(), free_cells.data_ptr(),
+        cursor.data_ptr(), stream,
+    )
+    _launched("place_objects", rc, B)
+    return rs.replace(cursor=cursor), res.replace(grid=grid, free_cells=free_cells)
