@@ -80,6 +80,11 @@ class GameDef:
     # Worst-case RNG draws consumed by one reset (sizes the prefetch block).
     reset_max_draws: int = 512
 
+    # ``extra`` fields the reference keeps across a reset (members of the
+    # C++ game that game_reset leaves alone): the fast path's level swap
+    # takes them from the dying step, as the inline reset does
+    kept_across_reset: tuple = ()
+
     def image_rect_adjust(self, img_type):
         """get_adjusted_image_rect (bag.cpp:807-809) as (ox, oy, sw, sh)
         fractions, or None."""

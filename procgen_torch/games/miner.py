@@ -66,6 +66,9 @@ class MinerGame(GameDef):
     max_substeps = 1  # grid_step
     grid_dynamic = True  # the grid mutates every step (digging / gravity)
     background_group = "platform_backgrounds"
+    # miner.cpp:23: the member is recomputed only by a step's sweep, so a
+    # level's first step tests the exit against the count of the level before
+    kept_across_reset = ("diamonds_remaining",)
 
     def asset_map(self, cfg):
         # miner.cpp:42-56

@@ -10,8 +10,9 @@ levelgen cost scales with the episode-completion rate, not num_envs.
 The refill loop runs on the host: its test for a dying env costs one
 device sync per step (and, under a mesh, one all-reduce of the N refill
 scores).  Under a profiler (``procgen_torch.telemetry``) the step, the
-refill and its two halves are spans, and the refill counts the rows it
-pregenerates and those it writes into an empty queue slot.
+refill and its two halves are spans, the refill counts the rows it
+pregenerates and those it writes into an empty queue slot, and the step
+counts the rows that swap in their queued level (``fast.swaps``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from procgen_torch.render.renderer import update_view_params
 from procgen_torch.state import EnvState, tree_map, tree_select
 
 # step-output fields that must come from the dying step, not the pregen entry
+# (besides the game's ``kept_across_reset`` fields of ``extra``)
 _KEEP_FIELDS = (
     "reward",
     "done",
@@ -142,9 +144,12 @@ def make_fast_fns(gd, cfg, pack, refill_bucket: int = 1024, mesh=None):
         fs = refill_if_needed(FastState(stepped, fs.queue, fs.queue_valid), need)
 
         # swap in pregen levels for finished episodes, keeping the dying
-        # step's outputs
+        # step's outputs and the game state the reference keeps across a
+        # reset (the inline reset leaves both alone)
+        telemetry.count("fast.swaps", stepped.done)
         merged_queue = fs.queue.replace(
-            **{f: getattr(stepped, f) for f in _KEEP_FIELDS}
+            extra={**fs.queue.extra, **{f: stepped.extra[f] for f in gd.kept_across_reset}},
+            **{f: getattr(stepped, f) for f in _KEEP_FIELDS},
         )
         state = tree_select(stepped.done, merged_queue, stepped)
         state = finish_step(cfg, state)

@@ -34,6 +34,8 @@ from procgen_torch.state import F32, I32
 
 TWO_PI = float(2 * np.pi)
 FRAME_SPAN = "procgen_torch.frame"
+# the per-frame grid draw of a moving view or a grid-dynamic game
+GRID_PASS_SPAN = "procgen_torch.frame.grid_pass"
 
 # entity record layout (fast2._RF of the reference package)
 _RF = dict(
@@ -422,7 +424,8 @@ def base_canvas(gd, cfg, states, tables) -> torch.Tensor:
     if gd.center_agent(cfg):
         canvas = bg_pass(gd, cfg, states, tables, canvas)
         if not gd.grid_dynamic:
-            canvas = grid_pass(gd, cfg, states, tables, canvas)
+            with telemetry.span(GRID_PASS_SPAN):
+                canvas = grid_pass(gd, cfg, states, tables, canvas)
     return canvas
 
 
@@ -432,7 +435,8 @@ def render_frames2(gd, cfg, states, pack) -> torch.Tensor:
     twice for grid-dynamic games, whose grid is drawn between the entities
     under it (z < 0) and the rest (fast2.py:670-680 of the reference
     package), then the velocity patch and the HUD.  The span
-    ``procgen_torch.frame`` covers it."""
+    ``procgen_torch.frame`` covers it, ``procgen_torch.frame.grid_pass``
+    each grid draw in it."""
     with telemetry.span(FRAME_SPAN):
         tables = get_tables(gd, cfg, pack, states.done.device)
         canvas = base_canvas(gd, cfg, states, tables)
@@ -440,7 +444,8 @@ def render_frames2(gd, cfg, states, pack) -> torch.Tensor:
         records = _pad_records(records)
         if gd.grid_dynamic:
             canvas = compositor.composite_entities(tables, records, kmax, canvas, "neg")
-            canvas = grid_pass(gd, cfg, states, tables, canvas)
+            with telemetry.span(GRID_PASS_SPAN):
+                canvas = grid_pass(gd, cfg, states, tables, canvas)
             canvas = compositor.composite_entities(tables, records, kmax, canvas, "nonneg")
         else:
             canvas = compositor.composite_entities(tables, records, kmax, canvas)

@@ -30,6 +30,7 @@ from torch.autograd import profiler as _profiler
 SPANS = (
     "procgen_torch.game_step",
     "procgen_torch.frame",
+    "procgen_torch.frame.grid_pass",
     "procgen_torch.refill",
     "procgen_torch.refill.levelgen",
     "procgen_torch.refill.bake",

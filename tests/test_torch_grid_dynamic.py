@@ -9,6 +9,10 @@ view_dim rule of tests/test_torch_fast_path.py), and the rendered uint8
 frames identical.  The frames run the plain compositor through both z
 passes and the grid pass between them; memory mode adds the center-agent
 view.
+
+The JAX side is pinned to the reference's diamond count across a level
+swap (``pin_jax_kept_fields``): its fast path carries the queued level's
+count, the port's the dying step's (ROADMAP C3).
 """
 
 import jax
@@ -21,6 +25,7 @@ from procgen_tpu import rng as JR
 from procgen_tpu.config import DistributionMode as JMode
 from procgen_tpu.config import EnvConfig as JConfig
 from procgen_tpu.games import make_game as j_make_game
+from procgen_tpu.parallel import fast as j_fast
 from procgen_tpu.parallel.fast import make_fast_fns as j_make_fast_fns
 from procgen_tpu.render import fast2 as j_fast2
 from procgen_tpu.render.pack import RenderPack as JPack
@@ -40,6 +45,20 @@ torch.set_num_threads(1)
 N = 4
 SEED = 23
 FORCED = (40, 41, 90)
+
+
+def pin_jax_kept_fields(monkeypatch, game, mode):
+    """The JAX fast path's level swap made to carry the game's
+    ``kept_across_reset`` fields from the dying step, as the port's does and
+    as the reference keeps them (miner.cpp:23, 305): its ``_KEEP_FIELDS``
+    gains ``extra`` when those fields are the whole of ``extra`` (miner's
+    ``diamonds_remaining``), before its step is traced."""
+    cfg = EnvConfig(env_name=game, num_envs=N, distribution_mode=DistributionMode[mode],
+                    rand_seed=SEED, use_generated_assets=True)
+    gd = make_game(cfg)
+    if gd.kept_across_reset:
+        assert set(gd.init_extra(cfg, N, "cpu")) == set(gd.kept_across_reset)
+        monkeypatch.setattr(j_fast, "_KEEP_FIELDS", j_fast._KEEP_FIELDS + ("extra",))
 
 
 def jax_fast_path(game, mode):
@@ -109,5 +128,6 @@ def run_against_reference(game, mode, steps, expect_reward=True):
 @pytest.mark.parametrize(
     "mode,steps", [("easy", 150), ("hard", 150), ("memory", 110)]
 )
-def test_miner_fast_path_matches_reference(mode, steps):
+def test_miner_fast_path_matches_reference(monkeypatch, mode, steps):
+    pin_jax_kept_fields(monkeypatch, "miner", mode)
     run_against_reference("miner", mode, steps)

@@ -40,7 +40,13 @@ PPO = ppo.PPOConfig(n_steps=6, n_minibatches=2, n_epochs=1)
 READERS = {
     "maze-hard.random-4096": ["game_step.ms_per_step.env", "frame.ms_per_step.env",
                               "refill.levelgen.ms_per_call", "refill.bake.ms_per_call",
-                              "refill.rows_used.share", "host_reads_per_step.env"],
+                              "refill.rows_used.share", "host_reads_per_step.env",
+                              "swaps_per_step.env"],
+    "miner-hard.random-4096": ["game_step.ms_per_step.env", "frame.ms_per_step.env",
+                               "refill.levelgen.ms_per_call", "refill.bake.ms_per_call",
+                               "refill.rows_used.share", "host_reads_per_step.env",
+                               "swaps_per_step.env", "miner.gravity_sweep.ms_per_step.env",
+                               "frame.grid_pass.ms_per_step.env"],
     "maze-hard.ppo-256": ["rollout.share.train", "policy.ms_per_step.train",
                           "gae.ms_per_iter.train", "update.host_s_per_iter.train"],
 }
@@ -209,6 +215,8 @@ def test_refill_and_step_counters(runs):
     # plus the entries the deaths took
     empty0, empty1 = on["empty"]
     assert counters["refill.rows_used"] == empty0 - empty1 + sum(on["dones"])
+    # every dying env swapped in its queued level
+    assert counters["fast.swaps"] == sum(on["dones"]) > 0
     # the refill's test runs once per pass and once more per step
     assert counters["host_reads.fast.refill_test"] == steps + passes
 
@@ -231,7 +239,7 @@ def test_spans_lists_every_span_of_the_program():
 def test_readers_read_a_tiny_traced_run(cell, tmp_path, monkeypatch):
     import tempfile
 
-    from benchmark import envloop, harness
+    from benchmark import envloop, harness, inputs
     from benchmark.tests.helpers import correct, run_tiny, tiny_cell
 
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
@@ -251,6 +259,11 @@ def test_readers_read_a_tiny_traced_run(cell, tmp_path, monkeypatch):
 
     c = tiny_cell(cell)
     env_cell = "ppo" not in c.traffic
+    if c.config["game"] == "miner":
+        # miner's 1000-step timeout: every env within three steps of it, so
+        # the window's first steps end episodes (the check replays the same)
+        monkeypatch.setattr(inputs, "phases",
+                            lambda seed, n, timeout: timeout - 2 - np.arange(n) % 3)
     out = run_tiny(c, trace=True, seconds=0.5 if env_cell else 1.0,
                    system=empty_queue if env_cell else None)
     assert correct(out), out.checks
