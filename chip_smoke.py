@@ -22,7 +22,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
    count and the cursor bitwise equal; each kernel's device ms per launch
    (profiler), the plain version's ms per call, one env of the largest
    size alone (the kernel's dependent chain, measured) and the bytes it
-   moves;
+   moves; miner's gravity sweep (``sweep_kernel`` of
+   ``csrc/miner_sweep.cu``) against ``MinerGame.gravity_sweep_ref`` on the
+   same card tensors at 4096 rows of easy, hard and memory levels after 5
+   random steps: grid, diamond count and crush flag bitwise equal; its
+   device ms per launch, the wrapper's host ms, the plain version's ms,
+   one env alone, the bytes, and ptxas's registers, stack and spills;
 3. the double cos/sin of a float angle (caveflyer's ship), ``fmath.dsincos``:
    on 2^24 float32 angles in [-300, 300] the card's bits against the CPU's
    (must be equal), and the count of angles where torch's own float64
@@ -71,7 +76,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
       frames, or 2 x frames for grid-dynamic games), frames not black; the
       maze kernels' launches counted the same way (2 per refill pass on
       maze, 1 on chaser, jumper and heist, 0 elsewhere; the passes are the
-      cold start's and ceil(need / bucket) a step);
+      cold start's and ceil(need / bucket) a step), and the miner sweep
+      kernel's (one a step on miner, 0 elsewhere);
    c. the final frames through the kernel and through the plain version,
       in each z pass, bitwise equal, each pass's input canvas >= +0 (the
       kernel skips pixels outside a record's box, which is exact only
@@ -163,7 +169,7 @@ at the start; the fractional-alpha root of phase 2 goes there too, and the
 directory is removed at the end.
 
 The last three lines are the card's name and power limit, the kernels line
-(the compositor, then the two maze kernels), and ``{"ok": true, "device": {...}}``.  The script needs CUDA; without it, it
+(the compositor, the two maze kernels, then the miner sweep), and ``{"ok": true, "device": {...}}``.  The script needs CUDA; without it, it
 exits non-zero and prints no result.
 """
 
@@ -197,7 +203,7 @@ from procgen_torch.config import DistributionMode, EnvConfig
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine.base import AGENT_SWEEP_SPAN, PAIRS_SPAN
 from procgen_torch.engine.entity_ops import REPOSITION_SPAN
-from procgen_torch.engine.game import step_env_no_reset
+from procgen_torch.engine.game import reset_env, step_env, step_env_no_reset
 from procgen_torch.engine.levelgen import mazegen
 from procgen_torch.engine.levelgen.mazegen import DOORS_SPAN
 from procgen_torch.engine.levelgen.roomgen import FIND_PATH_SPAN
@@ -205,6 +211,7 @@ from procgen_torch.engine.physics import REFLECT_SPAN
 from procgen_torch.env import ProcgenTorchEnv
 from procgen_torch.games import bossfight as BF
 from procgen_torch.games import make_game
+from procgen_torch.games import miner
 from procgen_torch.games.bossfight import BARRIER_SWEEP_SPAN
 from procgen_torch.games.dodgeball import ENEMY_SWEEP_SPAN
 from procgen_torch.games.jumper import SCANS_SPAN
@@ -262,6 +269,11 @@ TRIG_ANGLES = 1 << 24
 # its main path's cold start, and maze memory's max_dim, the kernels' largest
 MAZEGEN_CASES = ((BUCKET, 25), (N_ENVS, 25), (BUCKET, 31), (N_ENVS, 31))
 MAZE_GOAL = 2  # games/maze.py: GOAL, the object maze places
+# the miner sweep kernel's cases (rows, world width): the main path's 4096
+# envs at easy, hard and memory; the random steps its inputs take first
+MINER_MODES = {10: "easy", 20: "hard", 35: "memory"}
+MINER_SWEEP_CASES = tuple((N_ENVS, W) for W in MINER_MODES)
+MINER_SWEEP_STEPS = 5
 # maze kernel launches per refill pass of the main paths that generate a
 # maze: maze's maze and goal, chaser's and jumper's through
 # generate_maze_no_dead_ends, heist's through generate_maze_with_doors
@@ -478,24 +490,24 @@ def maze_levels(dev, rows: int, max_dim: int, seed: int):
                                                                      device=dev)
 
 
-MAZEGEN_LAUNCHES = 20
+PROFILED_LAUNCHES = 20
 
 
 def kernel_device_ms_of(fn, kernel: str) -> float:
-    """The device ms per launch of ``kernel`` over MAZEGEN_LAUNCHES calls of
+    """The device ms per launch of ``kernel`` over PROFILED_LAUNCHES calls of
     ``fn`` (after a warm-up), from a profiler window: the kernel's own time,
     where events would time the host's pace of a short launch."""
     fn()
 
     def calls():
-        for _ in range(MAZEGEN_LAUNCHES):
+        for _ in range(PROFILED_LAUNCHES):
             fn()
 
     _, w = profiled(calls, ())
     device_ns = [v for k, v in w["kernels"].items() if kernel in k]
     if not device_ns:
         raise AssertionError(f"the profiler saw no {kernel} launch")
-    return sum(device_ns) / 1e6 / MAZEGEN_LAUNCHES
+    return sum(device_ns) / 1e6 / PROFILED_LAUNCHES
 
 
 def mazegen_timing(gen, place, plain_gen, plain_place, one_gen, one_place, nbytes) -> dict:
@@ -563,6 +575,63 @@ def phase_mazegen_vs_plain(dev) -> dict:
         cases[f"{rows}x{max_dim}"] = t
         emit("mazegen_vs_plain", rows=rows, max_dim=max_dim, bitwise_equal=True,
              checked=list(pairs), draws_read=list(drawn), **t)
+    return cases
+
+
+def miner_sweep_inputs(dev, rows: int, W: int):
+    """The sweep's inputs as miner's game step makes them, at ``rows`` envs
+    of the mode whose world is W wide: levels reset and stepped
+    MINER_SWEEP_STEPS times with random actions (dug cells, moving
+    objects), the agent where it stands."""
+    cfg = game_cfg("miner", MINER_MODES[W], rows)
+    gd = make_game(cfg)
+    state = reset_env(gd, cfg, seeded_template(gd, cfg, rows, device=dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(W)
+    for _ in range(MINER_SWEEP_STEPS):
+        acts = torch.randint(0, 15, (rows,), generator=gen, device=dev, dtype=torch.int32)
+        state = step_env(gd, cfg, state, acts)
+    ax, ay = state.ents.x[:, 0], state.ents.y[:, 0]
+    free = ay.to(torch.int64) * W + ax.to(torch.int64)
+    return gd, (state.grid.reshape(rows, W * W), ay, ax, free)
+
+
+def phase_miner_sweep_vs_plain(dev, ptxas: list) -> dict:
+    """Miner's sweep kernel against ``gravity_sweep_ref`` on the same card
+    tensors at MINER_SWEEP_CASES: grid, diamond count and crush flag
+    bitwise, in one launch; then its device ms per launch (profiler), the
+    wrapper's host ms per call, the plain version's ms per call (events),
+    one env alone (the kernel's dependent chain, measured) and the bytes it
+    moves.  Returns each case's record."""
+    cases = {}
+    for rows, W in MINER_SWEEP_CASES:
+        gd, args = miner_sweep_inputs(dev, rows, W)
+        before = miner.launches
+        k = gd.gravity_sweep(*args)
+        launched = miner.launches - before
+        p = gd.gravity_sweep_ref(*args)
+        torch.cuda.synchronize()
+        differ = [name for name, a, b in zip(("grid", "diamonds", "crushed"), k, p)
+                  if not torch.equal(a.to(b.dtype), b)]
+        if differ or launched != 1 or k[0].dtype != torch.int32:
+            raise AssertionError(f"miner sweep kernel vs plain at ({rows}, {W}): {differ} "
+                                 f"differ, {launched} launches, grid {k[0].dtype}")
+        one = tuple(a[:1] for a in args)
+        chain_ms = kernel_device_ms_of(lambda: gd.gravity_sweep(*one), "sweep_kernel")
+        # each grid read and written once as int32, the agent's two cells
+        # read, the count and the flag written
+        nbytes = rows * (2 * W * W * 4 + 4 + 8 + 4 + 1)
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound_ms, bound_by = max((bytes_ms, "bytes"), (chain_ms, "chain"))
+        rec = dict(kernel_ms=kernel_device_ms_of(lambda: gd.gravity_sweep(*args), "sweep_kernel"),
+                   host_ms=host_ms(lambda: gd.gravity_sweep(*args), 50),
+                   plain_ms=cuda_ms(lambda: gd.gravity_sweep_ref(*args), 1),
+                   bound_ms=bound_ms, bound_by=bound_by, chain_ms=chain_ms, bytes=nbytes,
+                   bytes_bound_ms=bytes_ms, records=[rows, W])
+        cases[f"{rows}x{W}"] = rec
+        moved = int((k[0] != args[0]).any(1).sum())
+        emit("miner_sweep_vs_plain", rows=rows, world_dim=W, bitwise_equal=True,
+             envs_moved=moved, envs_crushed=int(k[2].sum()), ptxas=ptxas, **rec)
     return cases
 
 
@@ -726,6 +795,7 @@ def phase_main_path(dev, game, mode, timed_steps, generated=True):
 
     compositor.launches = 0  # counts start here: this main path's run
     mazegen.launches = 0
+    miner.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fs = init.cold(seeded_template(gd, cfg, N_ENVS, device=dev))
@@ -763,6 +833,7 @@ def phase_main_path(dev, game, mode, timed_steps, generated=True):
     loop_s = time.perf_counter() - t_loop
     launches = compositor.launches  # counts read here
     maze_launches = mazegen.launches
+    sweep_launches = miner.launches
     if launches != passes(gd) * frames_rendered:
         raise AssertionError(
             f"{game}: compositor launches {launches} != {passes(gd)} x {frames_rendered} frames"
@@ -772,6 +843,8 @@ def phase_main_path(dev, game, mode, timed_steps, generated=True):
     if maze_launches != MAZEGEN_PER_PASS.get(game, 0) * refill_passes:
         raise AssertionError(f"{game}: maze kernel launches {maze_launches} != "
                              f"{MAZEGEN_PER_PASS.get(game, 0)} x {refill_passes} refill passes")
+    if sweep_launches != (steps if game == "miner" else 0):
+        raise AssertionError(f"{game}: miner sweep launches {sweep_launches} over {steps} steps")
     if min(black) < 0.9:
         raise AssertionError(f"{game}: frames look black: non-zero share {black}")
     if not torch.isfinite(fs.state.ents.x).all() or not torch.isfinite(fs.state.reward).all():
@@ -783,7 +856,7 @@ def phase_main_path(dev, game, mode, timed_steps, generated=True):
          timed_steps=timed_steps, env_steps_per_s=sps, launches=launches,
          launches_per_frame=passes(gd), frames=frames_rendered,
          mazegen_launches=maze_launches, refill_passes=refill_passes,
-         episodes_ended=int(episodes), episodes_ended_on_first_step=int(first_step_ends),
+         miner_sweep_launches=sweep_launches, episodes_ended=int(episodes), episodes_ended_on_first_step=int(first_step_ends),
          reward_sum=float(reward_sum),
          nonzero_pixel_share=black, checksum=int(checksum))
     refills_per_step = int(refills) / timed_steps
@@ -792,6 +865,7 @@ def phase_main_path(dev, game, mode, timed_steps, generated=True):
         gen=gen, launches=launches, sps=sps, refills_per_step=refills_per_step,
         mazegen=dict(launches=maze_launches, refill_passes=refill_passes,
                      launches_per_pass=MAZEGEN_PER_PASS.get(game, 0)),
+        sweep_launches=sweep_launches,
     )
 
 
@@ -1867,6 +1941,28 @@ def mazegen_kernels(cases: dict, paths: dict) -> list:
     return out
 
 
+def miner_sweep_kernel(cases: dict, launches: int) -> dict:
+    """The sweep kernel's entry of the kernels line: the hard case's times
+    at the top, every case's in ``per_path``; ``launches`` is the miner
+    main path's (one a step)."""
+    hard = cases[f"{N_ENVS}x20"]
+    return {
+        "name": "gravity_sweep",
+        "kernel": "sweep_kernel",
+        "route": "cuda",
+        "source": "procgen_torch/csrc/miner_sweep.cu",
+        "replaces": None,  # the JAX package ran this loop as a fori_loop under jit
+        "tpu_source": None,
+        "launches": launches,
+        "bitwise_equal": True,
+        "max_abs_err": 0,
+        **{k: hard[k] for k in ("plain_ms", "bound_ms", "bound_by")},
+        "ms": hard["kernel_ms"],
+        "library_ms": None,
+        "per_path": cases,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -1889,14 +1985,19 @@ def main() -> int:
         phase_kernels_vs_plain(dev)
         phase_kernels_vs_plain_fractional(dev, tmp)
         maze_cases = phase_mazegen_vs_plain(dev)
+        sweep_cases = phase_miner_sweep_vs_plain(dev, [
+            ln.strip() for ln in built["miner_sweep"]["log"].splitlines()
+            if "sweep_kernel" in ln or "registers" in ln or "spill" in ln])
         phase_trig(dev)
-        per_path, maze_paths = {}, {}
+        per_path, maze_paths, sweep_launches = {}, {}, 0
         with cpu_worker() as worker:
             for game, mode, timed_steps, generated in PATHS:
                 phase_card_vs_cpu(dev, game, mode, worker, generated)
                 run = phase_main_path(dev, game, mode, timed_steps, generated)
                 if game in MAZEGEN_PER_PASS:
                     maze_paths[f"{game}-{mode}"] = run.mazegen
+                if game == "miner":
+                    sweep_launches = run.sweep_launches
                 phase_final_frames(run, dev)
                 per_path[f"{game}-{mode}"] = dict(phase_timing(run, dev),
                                                   assets=asset_kind(generated))
@@ -1936,7 +2037,8 @@ def main() -> int:
         "bound_by": first["bound_by"],
         "library_ms": None,
         "per_path": per_path,
-    }] + mazegen_kernels(maze_cases, maze_paths)}), flush=True)
+    }] + mazegen_kernels(maze_cases, maze_paths)
+        + [miner_sweep_kernel(sweep_cases, sweep_launches)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0

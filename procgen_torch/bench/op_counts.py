@@ -15,9 +15,10 @@ agent-collision sweeps, bossfight's barrier sweep).  The game runs in its defaul
 configuration, PNG assets, from ``PROCGEN_TORCH_ASSET_ROOT`` or else from a
 synthetic root written into a temporary directory; ``--generated-assets``
 runs the configuration the earlier slices measured.  On the card these counts set
-the host time of a step; they do not depend on the device, except the
-frame's: on the CPU the compositor runs its plain version, one op group per
-drawn record.  Prints one JSON line.
+the host time of a step; they do not depend on the device, except where the
+card runs a kernel and the CPU its plain version: the frame's compositor
+(one op group per drawn record on the CPU), the maze generator in the refill
+and miner's sweep (a loop over the cells on the CPU).  Prints one JSON line.
 """
 
 from __future__ import annotations

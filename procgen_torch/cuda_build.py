@@ -3,9 +3,10 @@
 Each source under ``procgen_torch/csrc`` compiles into its own shared
 library under ``procgen_torch/_build/`` at first use: the CUDA kernels with
 ``nvcc`` (all of them together, when the first is loaded), the PNG
-decoder's host-side unfilter and the host build of the maze kernels' code
-with ``g++``.  The file name carries a hash of the source, the headers it
-includes from ``csrc`` and the flags, so an edited source is rebuilt.
+decoder's host-side unfilter and the host builds of the maze kernels' and
+the miner sweep's code with ``g++``.  The file name carries a hash of the
+source, the headers it includes from ``csrc`` and the flags, so an edited
+source is rebuilt.
 Nothing here runs at import time.
 """
 
@@ -28,8 +29,10 @@ BUILD = PKG / "_build"
 SOURCES = {
     "compositor": ("compositor.cu", "nvcc"),
     "mazegen": ("mazegen.cu", "nvcc"),
+    "miner_sweep": ("miner_sweep.cu", "nvcc"),
     "png_unfilter": ("png_unfilter.cpp", "g++"),
     "mazegen_host": ("mazegen_host.cpp", "g++"),
+    "miner_sweep_host": ("miner_sweep_host.cpp", "g++"),
 }
 
 NVCC_FLAGS = [

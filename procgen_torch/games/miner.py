@@ -4,18 +4,24 @@ counterpart of ``procgen_tpu/games/miner.py``.
 The grid changes every step (digging, falling and rolling boulders and
 diamonds), so miner renders in the grid-dynamic class.  The gravity sweep is
 sequential in ascending cell order with in-place writes (falls write the
-already swept row below, rolls write the neighbor not yet swept): it loops
-over the cells, each iteration one batched op over envs.
+already swept row below, rolls write the neighbor not yet swept).  Its
+plain version (``MinerGame.gravity_sweep_ref``, which CPU tensors run)
+loops over the cells, each iteration a few batched ops over envs; for CUDA
+tensors ``gravity_sweep`` launches the kernel of
+``procgen_torch/csrc/miner_sweep.cu`` (one thread per env; same bits) or
+raises, and ``launches`` counts it.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from procgen_torch import cuda_build, telemetry
 from procgen_torch import objects as O
 from procgen_torch import rng as R
-from procgen_torch import telemetry
 from procgen_torch.config import DistributionMode
 from procgen_torch.engine import entity_ops as eo
 from procgen_torch.engine import rand_util as ru
@@ -38,6 +44,9 @@ OOB_WALL = 10
 
 # profiler span of the gravity sweep (read by chip_smoke.py's timing phase)
 SWEEP_SPAN = "procgen_torch.miner.gravity_sweep"
+KERNEL_MAX_DIM = 38  # miner_sweep.cu: MAX_DIM
+
+launches = 0  # sweep kernel launches since import (reset by callers that count)
 
 # per-cell-value lookup tables of the gravity sweep (cell values <= SPACE)
 _LUT_SIZE = O.SPACE + 1
@@ -49,6 +58,21 @@ _STAT = np.arange(_LUT_SIZE)  # the settled form of a cell value
 _STAT[MOVING_BOULDER], _STAT[MOVING_DIAMOND] = BOULDER, DIAMOND
 _FALLING = np.arange(_LUT_SIZE)  # the moving form of a cell value
 _FALLING[BOULDER], _FALLING[DIAMOND] = MOVING_BOULDER, MOVING_DIAMOND
+
+
+def _lib():
+    lib = cuda_build.load("miner_sweep")
+    if lib.miner_sweep_launch.argtypes is None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        lib.miner_sweep_launch.argtypes = [ptr] * 3 + [i] * 2 + [ptr] * 4
+        lib.miner_sweep_launch.restype = i
+    return lib
+
+
+def fall_cell(ay, ax, W: int):
+    """The agent's cell that the sweep's falling check reads, from its float
+    position (miner.cpp:95-97): int32 (N,)."""
+    return ((ay - 0.5) * W + (ax - 0.5)).to(I32)
 
 
 def _set_cells(flat, idx, mask, val):
@@ -280,7 +304,47 @@ class MinerGame(GameDef):
 
     def gravity_sweep(self, flat, ay, ax, agent_idx_free):
         """miner.cpp:267-303 over the flat (N, area) grid, ascending cell
-        order, in place.  Returns (flat, diamonds (N,) int32, crushed (N,))."""
+        order.  Returns (grid, diamonds (N,) int32, crushed (N,)).  CPU
+        tensors run ``gravity_sweep_ref``; CUDA tensors launch the kernel,
+        which takes the grid as a contiguous int32 tensor and
+        ``agent_idx_free`` as a contiguous int64 one, and returns a new
+        int32 grid."""
+        if flat.device.type == "cpu":
+            return self.gravity_sweep_ref(flat, ay, ax, agent_idx_free)
+        global launches
+        W = self.world_dim
+        N = flat.shape[0]
+        dev = flat.device
+        if dev.type != "cuda":
+            raise ValueError(f"gravity_sweep: unsupported device {dev}")
+        if W > KERNEL_MAX_DIM:
+            raise ValueError(f"gravity_sweep: world_dim {W} is above {KERNEL_MAX_DIM}")
+        if flat.dtype != I32 or flat.shape != (N, W * W) or not flat.is_contiguous():
+            raise ValueError(f"gravity_sweep: grid {flat.dtype} {tuple(flat.shape)} is not a "
+                             f"contiguous int32 ({N}, {W * W}) tensor")
+        fall, free = fall_cell(ay, ax, W), agent_idx_free
+        if fall.shape != (N,) or free.shape != (N,) or free.dtype != torch.int64 or (
+                fall.device != dev or free.device != dev or not free.is_contiguous()):
+            raise ValueError(f"gravity_sweep: the agent's position {tuple(ay.shape)} and cell "
+                             f"{free.dtype} {tuple(free.shape)} on {free.device} are not ({N},), "
+                             f"the cell a contiguous int64 tensor on {dev}")
+        out = torch.empty_like(flat)
+        diamonds = torch.empty((N,), dtype=I32, device=dev)
+        crushed = torch.empty((N,), dtype=torch.bool, device=dev)
+        rc = _lib().miner_sweep_launch(
+            flat.data_ptr(), fall.data_ptr(), free.data_ptr(), N, W,
+            out.data_ptr(), diamonds.data_ptr(), crushed.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"gravity_sweep: CUDA launch failed (error {rc})")
+        launches += 1
+        telemetry.count("miner.sweep.kernel_rows", N)
+        return out, diamonds, crushed
+
+    def gravity_sweep_ref(self, flat, ay, ax, agent_idx_free):
+        """The plain version of ``gravity_sweep``: a loop over the cells,
+        each iteration a few batched ops over envs.  Returns flat as int64."""
         W = self.world_dim
         area = W * W
         N = flat.shape[0]
@@ -291,7 +355,7 @@ class MinerGame(GameDef):
         # the falling check reads the agent cell from its float position;
         # is_free uses get_agent_index() (miner.cpp:95-97, 224-226) on the
         # post-push position
-        agent_idx2 = ((ay - 0.5) * W + (ax - 0.5)).to(I32).to(torch.int64)
+        agent_idx2 = fall_cell(ay, ax, W).to(torch.int64)
         agent_at = cells == agent_idx2[:, None]  # (N, area)
         not_agent = cells != agent_idx_free[:, None]
         seen = torch.empty_like(flat)  # each cell's value when swept
