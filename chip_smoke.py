@@ -69,9 +69,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
       configuration;
    b. the main path: 4096 envs, refill bucket 512, seed 123, generated
       assets on the nine earliest paths and PNG assets from the asset root
-      on the seven asset games: cold start, then 3 warm-up and 10 timed
-      rendered steps with random actions (leaper 2: its resets
-      pre-roll 300 physics steps); the kernel's
+      on the seven asset games: cold start, then 13 rendered steps with
+      random actions (leaper 5: its resets pre-roll 300 physics steps),
+      untimed (the benchmark times the program); the kernel's
       launches counted from 0 just before and read just after (launches ==
       frames, or 2 x frames for grid-dynamic games), frames not black; the
       maze kernels' launches counted the same way (2 per refill pass on
@@ -83,17 +83,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
       kernel skips pixels outside a record's box, which is exact only
       without -0.0), and render_frames2 equal to the kernel's canvas with
       the velocity patch and the HUD painted over it;
-   d. timing (CUDA events / synchronized host clock): env-steps/s, the
-      kernel's ms per launch at the path's shapes beside its plain version
-      and its bound, the step's split (game step, refill, frame; miner's
-      gravity sweep; leaper's pre-roll; jumper's cell scans and path
-      search; reposition's retries; heist's maze with doors; pair
-      collisions, the entity-reflect sweep, dodgeball's enemy sweep,
-      bigfish's and heist's agent-collision sweeps, starpilot's spawner
-      timeline, bossfight's barrier sweep), torch ops per refill
-      from one
-      profiled refill at the bucket size, and device time by kernel from a
-      profiler window of 5 steps (leaper's 2);
+   d. timing, of the compositor alone (CUDA events): its ms per launch at
+      the final frame's records beside its plain version's and its bound
+      (the kernels line's ``per_path``).  The step's split and the torch
+      ops per span are the program's own spans, read by the benchmark and
+      by ``python3 -m procgen_torch.bench.op_counts GAME MODE --device
+      cuda``;
 5. the gym3 surface in its default configuration (PNG assets):
    ``ProcgenTorchEnv(..., device="cuda")`` on miner and
    ``ProcgenTorchEnv(64, "bigfish")`` (the card by default), a few
@@ -139,17 +134,17 @@ Phases (each prints one JSON line; any failure exits non-zero):
    the oracle phase runs in this one;
 10. ``bench``: ``python -m procgen_torch.bench_cli --games maze --num-envs
    4096 --chunk 8 --chunks 1`` in a subprocess started before the
-   ref_parity phase (so its env-steps/s ran beside it): one JSON line, whose
-   checksum the same loop run in this process repeats; the kernel's
+   ref_parity phase: its exit and its one JSON line, whose checksum the
+   same loop run in this process repeats; the kernel's
    launches in that loop (one per frame), its final frame kernel against
    plain, and its device time from a profiler window; its ``per_path``
    record is ``bench-maze-hard``;
 11. ``train``: ``python -m procgen_torch.learn.train`` (its ``main``) for 2
    PPO iterations at full width on coinrun easy, PNG assets: 256 envs,
    256-step rollouts, 3 epochs of 8 minibatches of 8,192 observations, the
-   bf16 IMPALA CNN at depths (16, 32, 32).  Per iteration the rollout's and
-   the update's seconds and the training env-steps/s; the compositor's
-   launches in the phase (one per frame, 257 per iteration) and, at the
+   bf16 IMPALA CNN at depths (16, 32, 32) (the benchmark's
+   ``maze-hard.ppo-256`` times the update): the compositor's launches in
+   the phase (one per frame, 257 per iteration) and, at the
    last rollout's final frame (256 envs), the kernel against its plain
    version bitwise and its ms per launch; ``max_memory_allocated``; loss
    and entropy finite, parameters changed; and on one minibatch of the
@@ -196,32 +191,20 @@ import torch
 from procgen_torch import convert, cuda_build
 from procgen_torch import fmath as fm
 from procgen_torch import rng as R
-from procgen_torch import telemetry
 from procgen_torch.bench import ref_parity, synth_assets, throughput
 from procgen_torch.bench.profiling import profiled
 from procgen_torch.config import DistributionMode, EnvConfig
 from procgen_torch.engine import entity_ops as eo
-from procgen_torch.engine.base import AGENT_SWEEP_SPAN, PAIRS_SPAN
-from procgen_torch.engine.entity_ops import REPOSITION_SPAN
-from procgen_torch.engine.game import reset_env, step_env, step_env_no_reset
+from procgen_torch.engine.game import reset_env, step_env
 from procgen_torch.engine.levelgen import mazegen
-from procgen_torch.engine.levelgen.mazegen import DOORS_SPAN
-from procgen_torch.engine.levelgen.roomgen import FIND_PATH_SPAN
-from procgen_torch.engine.physics import REFLECT_SPAN
 from procgen_torch.env import ProcgenTorchEnv
 from procgen_torch.games import bossfight as BF
 from procgen_torch.games import make_game
 from procgen_torch.games import miner
-from procgen_torch.games.bossfight import BARRIER_SWEEP_SPAN
-from procgen_torch.games.dodgeball import ENEMY_SWEEP_SPAN
-from procgen_torch.games.jumper import SCANS_SPAN
-from procgen_torch.games.leaper import PREROLL_SPAN
-from procgen_torch.games.miner import SWEEP_SPAN
-from procgen_torch.games.starpilot import SPAWNERS_SPAN
 from procgen_torch.learn import ppo as learn_ppo
 from procgen_torch.learn import train
 from procgen_torch.learn.nets import ImpalaCNN
-from procgen_torch.parallel.fast import REFILL_SPAN, make_fast_fns
+from procgen_torch.parallel.fast import make_fast_fns
 from procgen_torch.render import assets, compositor, fast2, oracle
 from procgen_torch.render.pack import RenderPack
 from procgen_torch.state import seeded_template, tree_map
@@ -234,11 +217,9 @@ PEAK_F32_FLOPS = 67e12
 # sub+div, tiling, texel scale, premultiply, 3 channels of mul+add+sub
 FLOPS_PER_PIXEL_RECORD = 20
 
-FRAME_SPAN = "chip_smoke.frame"
 N_ENVS = 4096
 BUCKET = 512
-WARMUP = 3
-# (game, mode, timed steps, generated assets) of each main path: maze is
+# (game, mode, rendered steps, generated assets) of each main path: maze is
 # the static-grid class, miner and chaser the grid-dynamic one, coinrun the
 # center-agent view with entity push, leaper the static view with tiled and
 # rotated sprites, ninja and jumper center-agent views with a HUD,
@@ -246,19 +227,17 @@ WARMUP = 3
 # rotation and pair collisions; the seven games that read their sprites'
 # aspect ratios from the PNG assets (bigfish, climber, heist, fruitbot,
 # plunder, starpilot, bossfight) run in the default configuration, PNG
-# assets.  To keep the script's time, the paths run fewer timed steps than
-# they did when they were new: 10, and 2 on leaper (each of its resets
-# pre-rolls 300 physics steps); the sharded phase took the steps cut last
-# (25, 15 and 3 before; warm-up 5 before 3).  Their env-steps/s are the
-# script's, not the bench's.
+# assets.  The paths check the program and time nothing (the benchmark
+# times it): 13 steps, 5 on leaper (each of its resets pre-rolls 300
+# physics steps).
 PATHS = (
-    ("maze", "hard", 10, True), ("miner", "hard", 10, True), ("chaser", "hard", 10, True),
-    ("coinrun", "hard", 10, True), ("leaper", "hard", 2, True), ("ninja", "hard", 10, True),
-    ("jumper", "hard", 10, True), ("caveflyer", "hard", 10, True),
-    ("dodgeball", "hard", 10, True), ("bigfish", "hard", 10, False),
-    ("climber", "hard", 10, False), ("heist", "hard", 10, False),
-    ("fruitbot", "hard", 10, False), ("plunder", "hard", 10, False),
-    ("starpilot", "hard", 10, False), ("bossfight", "hard", 10, False),
+    ("maze", "hard", 13, True), ("miner", "hard", 13, True), ("chaser", "hard", 13, True),
+    ("coinrun", "hard", 13, True), ("leaper", "hard", 5, True), ("ninja", "hard", 13, True),
+    ("jumper", "hard", 13, True), ("caveflyer", "hard", 13, True),
+    ("dodgeball", "hard", 13, True), ("bigfish", "hard", 13, False),
+    ("climber", "hard", 13, False), ("heist", "hard", 13, False),
+    ("fruitbot", "hard", 13, False), ("plunder", "hard", 13, False),
+    ("starpilot", "hard", 13, False), ("bossfight", "hard", 13, False),
 )
 # earlier games also held card vs CPU in the PNG configuration
 PNG_CARD_VS_CPU = (("coinrun", "hard"), ("maze", "hard"))
@@ -333,11 +312,9 @@ def passes(gd) -> int:
     return 2 if gd.grid_dynamic else 1
 
 
-def host_ms(fn, iters: int, warmup: bool = True) -> float:
-    """Mean wall ms per call, synchronized, after one warm-up call unless
-    the caller has just run the same work."""
-    if warmup:
-        fn()
+def host_ms(fn, iters: int) -> float:
+    """Mean wall ms per call, synchronized, after one warm-up call."""
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -357,20 +334,6 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-# profiler spans read by the timing phase (procgen_torch/bench/profiling.py
-# sums host ns, count and torch ops per span, and device ns by kernel)
-REFILL_SPANS = {"preroll": PREROLL_SPAN, "levelgen_scans": SCANS_SPAN,
-                "find_path": FIND_PATH_SPAN, "reposition": REPOSITION_SPAN,
-                "maze_doors": DOORS_SPAN, "spawners": SPAWNERS_SPAN}
-STEP_SPANS = {"pair_collisions": PAIRS_SPAN, "entity_reflect": REFLECT_SPAN,
-              "enemy_sweep": ENEMY_SWEEP_SPAN, "agent_sweep": AGENT_SWEEP_SPAN,
-              "barrier_sweep": BARRIER_SWEEP_SPAN}
-# the program's own spans too: the summary counts only ops whose enclosing
-# events are all spans it knows
-SPANS = tuple(dict.fromkeys((REFILL_SPAN, FRAME_SPAN, SWEEP_SPAN, *REFILL_SPANS.values(),
-                             *STEP_SPANS.values(), *telemetry.SPANS)))
 
 
 def phase_kernels_vs_plain(dev):
@@ -493,21 +456,25 @@ def maze_levels(dev, rows: int, max_dim: int, seed: int):
 PROFILED_LAUNCHES = 20
 
 
-def kernel_device_ms_of(fn, kernel: str) -> float:
+def kernel_device_ms_of(fn, kernel: str, counter=None) -> float:
     """The device ms per launch of ``kernel`` over PROFILED_LAUNCHES calls of
     ``fn`` (after a warm-up), from a profiler window: the kernel's own time,
-    where events would time the host's pace of a short launch."""
+    where events would time the host's pace of a short launch.  With
+    ``counter`` (the kernel's launch count, read before and after the
+    window) the divisor is the launches counted, else one per call."""
     fn()
 
     def calls():
         for _ in range(PROFILED_LAUNCHES):
             fn()
 
+    before = counter() if counter else 0
     _, w = profiled(calls, ())
+    launched = counter() - before if counter else PROFILED_LAUNCHES
     device_ns = [v for k, v in w["kernels"].items() if kernel in k]
-    if not device_ns:
-        raise AssertionError(f"the profiler saw no {kernel} launch")
-    return sum(device_ns) / 1e6 / PROFILED_LAUNCHES
+    if not device_ns or not launched:
+        raise AssertionError(f"the profiler saw no {kernel} launch ({launched} counted)")
+    return sum(device_ns) / 1e6 / launched
 
 
 def mazegen_timing(gen, place, plain_gen, plain_place, one_gen, one_place, nbytes) -> dict:
@@ -781,13 +748,13 @@ def phase_card_vs_cpu(dev, game, mode, worker, generated=True):
          rewarded_steps=rewards, fields=len(s_cpu[0]), bitwise_equal=True, **staged)
 
 
-def phase_main_path(dev, game, mode, timed_steps, generated=True):
-    steps = WARMUP + timed_steps
+def phase_main_path(dev, game, mode, steps, generated=True):
+    """The main path at N_ENVS envs: ``steps`` rendered steps from a cold
+    start, with each kernel's launches counted, the frames not black and
+    the state finite."""
     cfg = game_cfg(game, mode, N_ENVS, generated)
     gd = make_game(cfg)
-    t0 = time.perf_counter()
     pack = RenderPack(gd, cfg)
-    pack_s = time.perf_counter() - t0
     init, step = make_fast_fns(gd, cfg, pack, refill_bucket=BUCKET)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -796,21 +763,13 @@ def phase_main_path(dev, game, mode, timed_steps, generated=True):
     compositor.launches = 0  # counts start here: this main path's run
     mazegen.launches = 0
     miner.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     fs = init.cold(seeded_template(gd, cfg, N_ENVS, device=dev))
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
     black, frames_rendered = [], 0
     episodes = torch.zeros((), dtype=torch.int64, device=dev)
     first_step_ends = torch.zeros((), dtype=torch.int64, device=dev)  # episodes of 1 step
     reward_sum = torch.zeros((), dtype=torch.float64, device=dev)
-    refills = torch.zeros((), dtype=torch.int64, device=dev)  # timed steps only
-    step_refills = torch.zeros((), dtype=torch.int64, device=dev)  # every step
+    step_refills = torch.zeros((), dtype=torch.int64, device=dev)
     for t in range(steps):
-        if t == WARMUP:
-            torch.cuda.synchronize()
-            t_loop = time.perf_counter()
         acts = torch.randint(0, 15, (N_ENVS,), generator=gen, device=dev, dtype=torch.int32)
         valid_before, fresh = fs.queue_valid, fs.state.cur_time == 0
         fs = step(fs, acts)
@@ -818,10 +777,7 @@ def phase_main_path(dev, game, mode, timed_steps, generated=True):
         # the step's refill loop ran ceil(need / bucket) bucket refills,
         # need = envs that finished with an empty queue entry
         need = (fs.state.done & ~valid_before).sum()
-        step_passes = torch.div(need + BUCKET - 1, BUCKET, rounding_mode="floor")
-        step_refills += step_passes
-        if t >= WARMUP:
-            refills += step_passes
+        step_refills += torch.div(need + BUCKET - 1, BUCKET, rounding_mode="floor")
         obs = fast2.render_frames2(gd, cfg, fs.state, pack)
         frames_rendered += 1
         checksum += obs[:, 31, 31, :].to(torch.int64).sum()
@@ -830,7 +786,6 @@ def phase_main_path(dev, game, mode, timed_steps, generated=True):
         if t % 50 == 0 or t == steps - 1:
             black.append(float((obs > 0).float().mean()))
     torch.cuda.synchronize()
-    loop_s = time.perf_counter() - t_loop
     launches = compositor.launches  # counts read here
     maze_launches = mazegen.launches
     sweep_launches = miner.launches
@@ -849,20 +804,15 @@ def phase_main_path(dev, game, mode, timed_steps, generated=True):
         raise AssertionError(f"{game}: frames look black: non-zero share {black}")
     if not torch.isfinite(fs.state.ents.x).all() or not torch.isfinite(fs.state.reward).all():
         raise AssertionError(f"{game}: non-finite state")
-    sps = N_ENVS * timed_steps / loop_s
     emit("main_path", game=game, mode=mode, assets=asset_kind(generated), num_envs=N_ENVS,
-         steps=steps,
-         refill_bucket=BUCKET, pack_build_s=pack_s, cold_start_s=cold_s,
-         timed_steps=timed_steps, env_steps_per_s=sps, launches=launches,
+         steps=steps, refill_bucket=BUCKET, launches=launches,
          launches_per_frame=passes(gd), frames=frames_rendered,
          mazegen_launches=maze_launches, refill_passes=refill_passes,
-         miner_sweep_launches=sweep_launches, episodes_ended=int(episodes), episodes_ended_on_first_step=int(first_step_ends),
-         reward_sum=float(reward_sum),
+         miner_sweep_launches=sweep_launches, episodes_ended=int(episodes),
+         episodes_ended_on_first_step=int(first_step_ends), reward_sum=float(reward_sum),
          nonzero_pixel_share=black, checksum=int(checksum))
-    refills_per_step = int(refills) / timed_steps
     return types.SimpleNamespace(
-        game=game, mode=mode, gd=gd, cfg=cfg, pack=pack, fs=fs, init=init, step=step,
-        gen=gen, launches=launches, sps=sps, refills_per_step=refills_per_step,
+        game=game, mode=mode, gd=gd, cfg=cfg, pack=pack, fs=fs, launches=launches,
         mazegen=dict(launches=maze_launches, refill_passes=refill_passes,
                      launches_per_pass=MAZEGEN_PER_PASS.get(game, 0)),
         sweep_launches=sweep_launches,
@@ -962,114 +912,21 @@ def kernel_timing(run) -> dict:
                 launches_per_step=n_pass)
 
 
-DEVICE_WINDOW_FRAMES = 20
-
-
 def kernel_device_ms(run) -> float:
-    """The kernel's device ms per launch at ``run``'s final state, summed
-    from a profiler window of DEVICE_WINDOW_FRAMES frames (as the timing
-    phase reads the compositor's device time per step)."""
-    def frames():
-        for _ in range(DEVICE_WINDOW_FRAMES):
-            fast2.render_frames2(run.gd, run.cfg, run.fs.state, run.pack)
+    """The compositor's device ms per launch at ``run``'s final state, from
+    a profiler window of PROFILED_LAUNCHES frames, over the launches counted
+    in that window."""
+    def frame():
+        fast2.render_frames2(run.gd, run.cfg, run.fs.state, run.pack)
 
-    frames()  # warm
-    before = compositor.launches
-    _, w = profiled(frames, (FRAME_SPAN,))
-    launched = compositor.launches - before
-    device_ns = [v for k, v in w["kernels"].items() if "composite_kernel" in k]
-    if not device_ns or not launched:
-        raise AssertionError(f"{run.game}: the profiler saw no compositor launch")
-    return sum(device_ns) / 1e6 / launched
+    return kernel_device_ms_of(frame, "composite_kernel", lambda: compositor.launches)
 
 
-def phase_timing(run, dev):
-    gd, cfg = run.gd, run.cfg
-    N = run.records.shape[0]
+def phase_timing(run):
+    """The compositor alone at the final frame's records of ``run``
+    (``kernel_timing``); returns the path's ``per_path`` record."""
     kern = kernel_timing(run)
-
-    # where a step's time goes.  Unprofiled: the whole step and the refills
-    # per step (from the main path), then the game step alone, one frame and
-    # one refill at the bucket size (and miner's gravity sweep), each timed
-    # alone on a synchronized host clock.  Profiled: one refill at the bucket
-    # size (host activity only: torch ops per refill, leaper's pre-roll
-    # span), then a short window of steps with spans for the refill (inside
-    # make_fast_fns), miner's sweep (inside its game step) and the frame
-    # (here), for device time by kernel and torch ops per span.
-    fs = run.fs
-    step_ms = N / run.sps * 1e3
-    acts = torch.randint(0, 15, (N,), generator=run.gen, device=dev, dtype=torch.int32)
-    game_step_ms = host_ms(lambda: step_env_no_reset(gd, cfg, fs.state, acts), 3)
-    frame_ms = host_ms(lambda: fast2.render_frames2(gd, cfg, fs.state, run.pack), 10)
-    bucket_states = seeded_template(gd, cfg, BUCKET, device=dev)
-    # leaper's refill pre-rolls 300 physics steps per level: one timed call,
-    # warm from the main path's refills
-    if run.game == "leaper":
-        refill_ms = host_ms(lambda: run.init.cold(bucket_states), 1, warmup=False)
-    else:
-        refill_ms = host_ms(lambda: run.init.cold(bucket_states), 3)
-    extra = {}
-    if run.game == "miner":
-        s = fs.state
-        W = gd.world_dim
-        ax, ay = s.ents.x[:, 0], s.ents.y[:, 0]
-        free = ay.to(torch.int64) * W + ax.to(torch.int64)
-        flat = s.grid.reshape(N, W * W)
-        sweep_ms = host_ms(lambda: gd.gravity_sweep(flat, ay, ax, free), 3)
-        extra = dict(sweep_ms=sweep_ms)
-
-    _, rp = profiled(lambda: run.init.cold(bucket_states), SPANS, cuda=False)
-    if rp["count"][REFILL_SPAN] != 1:
-        raise AssertionError(f"{run.game}: the profiled refill ran {rp['count'][REFILL_SPAN]} times")
-    for name, span in REFILL_SPANS.items():
-        if rp["count"][span]:
-            extra[f"{name}_profiled_share_of_refill"] = rp["ns"][span] / rp["ns"][REFILL_SPAN]
-            extra[f"torch_ops_per_{name}"] = rp["ops"][span] / rp["count"][span]
-
-    # leaper's window is cut to 2 steps (about one refill in 2.5, each of
-    # about 300,000 profiled ops) to keep the script's time
-    window = 2 if run.game == "leaper" else 5
-    box = [fs]
-
-    def steps_and_frames():
-        for _ in range(window):
-            a = torch.randint(0, 15, (N,), generator=run.gen, device=dev, dtype=torch.int32)
-            box[0] = run.step(box[0], a)
-            with torch.profiler.record_function(FRAME_SPAN):
-                fast2.render_frames2(gd, cfg, box[0].state, run.pack)
-
-    wall_ns, w = profiled(steps_and_frames, SPANS)
-    dev_ns = sum(w["kernels"].values())
-    comp_ns = sum(v for k, v in w["kernels"].items() if "composite_kernel" in k)
-    top = sorted(w["kernels"].items(), key=lambda kv: -kv[1])[:6]
-    spans = {k: v for k, v in w["ns"].items() if w["count"][k]}
-    if SWEEP_SPAN in spans:
-        # the sweep inside the profiled steps themselves, against the
-        # window's wall time and against that time less the refill and
-        # frame spans (the game step and the queue bookkeeping)
-        rest_ns = wall_ns - sum(spans.get(k, 0) for k in (REFILL_SPAN, FRAME_SPAN))
-        extra.update(sweep_profiled_share_of_step=spans[SWEEP_SPAN] / wall_ns,
-                     sweep_profiled_share_of_game_step=spans[SWEEP_SPAN] / rest_ns,
-                     torch_ops_per_sweep=w["ops"][SWEEP_SPAN] / window)
-    for name, span in STEP_SPANS.items():
-        if span in spans:  # inside the profiled steps, against their wall time
-            extra[f"{name}_profiled_share_of_step"] = spans[span] / wall_ns
-            extra[f"torch_ops_per_step_in_{name}"] = w["ops"][span] / window
-    emit("timing", game=run.game, mode=run.mode, **kern, env_steps_per_s=run.sps,
-         step_ms=step_ms, game_step_ms=game_step_ms, frame_ms=frame_ms,
-         refill_ms=refill_ms, refills_per_step=run.refills_per_step,
-         refill_share_est=run.refills_per_step * refill_ms / step_ms,
-         frame_share_est=frame_ms / step_ms,
-         game_step_share_est=game_step_ms / step_ms, **extra,
-         torch_ops_per_refill=rp["ops"][REFILL_SPAN],
-         profiled_steps=window, profiled_refills=w["count"][REFILL_SPAN],
-         profiled_wall_ms=wall_ns / 1e6,
-         profiled_span_share={k: v / wall_ns for k, v in spans.items()},
-         profiled_device_busy_share=dev_ns / wall_ns,
-         compositor_device_ms_per_step=comp_ns / 1e6 / window,
-         torch_ops_per_frame=w["ops"][FRAME_SPAN] / window,
-         torch_ops_per_step_outside_spans=w["ops_outside"] / window,
-         top_device_kernels=[[k[:60], v / 1e6] for k, v in top])
+    emit("timing", game=run.game, mode=run.mode, **kern)
     return path_record(kern, run.launches, run.err)
 
 
@@ -1346,7 +1203,7 @@ def start_bench_cli(dev):
            "--chunks", str(BENCH_CHUNKS), "--device", str(dev)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                             cwd=os.path.dirname(os.path.abspath(__file__)))
-    return types.SimpleNamespace(proc=proc, cmd=cmd, t0=time.perf_counter())
+    return types.SimpleNamespace(proc=proc, cmd=cmd)
 
 
 def phase_bench(dev, cli):
@@ -1354,10 +1211,8 @@ def phase_bench(dev, cli):
     checksum the same loop run here repeats; the compositor's launches
     counted from 0 just before the loop here and read just after (one per
     frame, warm-up chunk included).  Returns the bench path's ``per_path``
-    record.  The CLI's env-steps/s ran beside other phases: the bench's
-    own run (PERF.md) is the number to read."""
+    record."""
     stdout, stderr = cli.proc.communicate(timeout=900)
-    cli_s = time.perf_counter() - cli.t0
     lines = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
     if cli.proc.returncode != 0 or len(lines) != 1:
         raise AssertionError(f"bench: exit {cli.proc.returncode}, {len(lines)} JSON lines: "
@@ -1376,8 +1231,8 @@ def phase_bench(dev, cli):
     run.game = f"bench-{BENCH_GAME}"
     phase_final_frames(run, dev)
     kern = kernel_timing(run)
-    emit("bench", command=cli.cmd[1:], line=line, cli_s=cli_s, cli_beside="ref_parity, oracle",
-         in_process=here, checksum_repeats=True, launches=launches, frames=frames,
+    emit("bench", command=cli.cmd[1:], line=line, in_process_checksum=here["checksum"],
+         checksum_repeats=True, launches=launches, frames=frames,
          kernel_device_ms=kernel_device_ms(run), kernel_ms=kern["kernel_ms"])
     return dict(path_record(kern, launches, run.err), assets="png")
 
@@ -1437,8 +1292,8 @@ def f64_net_pass(state, ppo, mb):
 
 def phase_train(dev, worker):
     """``procgen_torch.learn.train.main`` for TRAIN_ITERS iterations at full
-    width, with the rollout and the update timed (synchronized host clock)
-    through wrappers of ``ppo.rollout`` and ``ppo.update``; the compositor's
+    width, with wrappers of ``ppo.rollout`` and ``ppo.update`` that keep
+    the first parameters, the last state and the last batch; the compositor's
     launches counted from 0 just before and read just after (one per
     rendered frame: n_steps + 1 per iteration); then the kernel against its
     plain version at the last rollout's final frame, and the net card
@@ -1446,39 +1301,28 @@ def phase_train(dev, worker):
     worker process.  Returns ``finish``, which waits for that pass, checks
     and emits the phase and returns the train path's ``per_path``
     record."""
-    rec = dict(rollout_s=[], update_s=[])
+    rec = {}
     rollout, update = learn_ppo.rollout, learn_ppo.update
 
-    def timed_rollout(net, *args):
+    def kept_rollout(net, *args):
         rec.setdefault("params0", [p.detach().clone() for p in net.parameters()])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         out = rollout(net, *args)
-        torch.cuda.synchronize()
-        rec["rollout_s"].append(time.perf_counter() - t0)
         rec["fs"] = out[0]
         return out
 
-    def timed_update(ts, ppo, batch, gen, *mesh):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = update(ts, ppo, batch, gen, *mesh)
-        torch.cuda.synchronize()
-        rec["update_s"].append(time.perf_counter() - t0)
+    def kept_update(ts, ppo, batch, gen, *mesh):
         rec.update(ts=ts, ppo=ppo, batch=batch)
-        return out
+        return update(ts, ppo, batch, gen, *mesh)
 
     printed = io.StringIO()
-    learn_ppo.rollout, learn_ppo.update = timed_rollout, timed_update
+    learn_ppo.rollout, learn_ppo.update = kept_rollout, kept_update
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         compositor.launches = 0  # counts start here: the train path's run
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed):
             rc = train.main(TRAIN_ARGS)
         torch.cuda.synchronize()
-        main_s = time.perf_counter() - t0
         launches = compositor.launches  # counts read here
         peak = torch.cuda.max_memory_allocated()
     finally:
@@ -1550,13 +1394,10 @@ def phase_train(dev, worker):
         if not all(errs[k] <= tols[k] for k in errs):  # NaN fails too
             raise AssertionError(f"train: card against CPU beyond tolerance: {errs} "
                                  f"(limits {tols}); each against float64: {vs_f64}")
-        steps = TRAIN_ENVS * TRAIN_STEPS
         emit("train", game=TRAIN_GAME, mode=TRAIN_MODE, args=TRAIN_ARGS, num_envs=TRAIN_ENVS,
              n_steps=TRAIN_STEPS, n_minibatches=ppo.n_minibatches, minibatch=mb_size,
              n_epochs=ppo.n_epochs, net_dtype=str(ts.net.dtype),
-             params=sum(p.numel() for p in ts.net.parameters()), main_s=main_s,
-             rollout_s=rec["rollout_s"], update_s=rec["update_s"],
-             train_env_steps_per_s=[steps / (r + u) for r, u in zip(rec["rollout_s"], rec["update_s"])],
+             params=sum(p.numel() for p in ts.net.parameters()),
              launches=launches, frames=frames, kernel_ms=kern["kernel_ms"],
              plain_ms=kern["plain_ms"], bound_ms=kern["bound_ms"], records=kern["records"],
              kmax=kern["kmax"], drawn_records=kern["drawn_records"],
@@ -1991,15 +1832,15 @@ def main() -> int:
         phase_trig(dev)
         per_path, maze_paths, sweep_launches = {}, {}, 0
         with cpu_worker() as worker:
-            for game, mode, timed_steps, generated in PATHS:
+            for game, mode, steps, generated in PATHS:
                 phase_card_vs_cpu(dev, game, mode, worker, generated)
-                run = phase_main_path(dev, game, mode, timed_steps, generated)
+                run = phase_main_path(dev, game, mode, steps, generated)
                 if game in MAZEGEN_PER_PASS:
                     maze_paths[f"{game}-{mode}"] = run.mazegen
                 if game == "miner":
                     sweep_launches = run.sweep_launches
                 phase_final_frames(run, dev)
-                per_path[f"{game}-{mode}"] = dict(phase_timing(run, dev),
+                per_path[f"{game}-{mode}"] = dict(phase_timing(run),
                                                   assets=asset_kind(generated))
                 del run
                 torch.cuda.empty_cache()

@@ -35,7 +35,7 @@ from procgen_torch.state import I32
 _PUSH = ((-1, 0), (0, -1), (0, 1), (1, 0))
 # layers of the BFS, and label-propagation rounds, between two device syncs
 _SYNC_EVERY = 8
-# profiler span of the path search (read by chip_smoke.py)
+# profiler span of the path search (read by bench/op_counts.py)
 FIND_PATH_SPAN = "procgen_torch.roomgen.find_path"
 
 

@@ -55,7 +55,7 @@ WHITE = (255.0, 255.0, 255.0)
 
 GOAL_SLOT = 1  # the goal spawns right after the agent and is never erased
 
-# profiler spans of the reset's three cell scans (read by chip_smoke.py)
+# profiler spans of the reset's three cell scans (read by bench/op_counts.py)
 SCANS_SPAN = "procgen_torch.jumper.levelgen_scans"
 
 

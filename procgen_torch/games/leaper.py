@@ -42,7 +42,7 @@ HALF_PI = fm.f32(np.pi / 2)
 
 MAX_LANES = 5  # difficulty <= 4 plus one extra lane
 
-# profiler span of the reset's traffic pre-roll (read by chip_smoke.py)
+# profiler span of the reset's traffic pre-roll (read by bench/op_counts.py)
 PREROLL_SPAN = "procgen_torch.leaper.preroll"
 
 
@@ -53,7 +53,6 @@ class LeaperGame(GameDef):
     max_jump = MAX_SPEED
     max_entities = 192  # the pre-roll accumulates off-screen spawns
     entity_rotations = "axis"  # cars at 180, frog at 0/90/180/270
-    sprite_tile = 64  # render_frames' sprite tile: FINISH_LINE spans the full world width
     background_group = "topdown_backgrounds"
     reset_max_draws = 4096
 

@@ -42,7 +42,7 @@ EXIT = 6
 DIRT = 9
 OOB_WALL = 10
 
-# profiler span of the gravity sweep (read by chip_smoke.py's timing phase)
+# profiler span of the gravity sweep (read by the benchmark and bench/op_counts.py)
 SWEEP_SPAN = "procgen_torch.miner.gravity_sweep"
 KERNEL_MAX_DIM = 38  # miner_sweep.cu: MAX_DIM
 

@@ -126,8 +126,8 @@ def make_fast_fns(gd, cfg, pack, refill_bucket: int = 1024, mesh=None):
             telemetry.count("host_reads.fast.refill_test")
             if not bool((score >= 2).any()):  # score >= 2 iff need
                 return fs
-            # a span (one flag read when no profiler runs): chip_smoke.py
-            # and the benchmark read the refill's share of the step from it
+            # a span (one flag read when no profiler runs): the benchmark
+            # reads the refill's share of the step from it
             with telemetry.span(REFILL_SPAN):
                 idx = torch.sort(-score, stable=True).indices[:min(refill_bucket, score.shape[0])]
                 if mesh is not None:

@@ -13,12 +13,6 @@ by render_z in {-1, 0, 1} passes in slot order, the velocity-info patch,
 the per-game HUD.  Every function takes a batch (leading env axis N); the
 entity pass loops on the host over draw positions, as far as the batch's
 largest live count.
-
-The reference package's matmul formulations (``render_static_fast``,
-``_grid_fast_one``, ``render_static_dispatch``, ``render_frames``,
-``_composite_entities_matmul``, ``_paint_vel_info_batched``) are at the
-end: the same frames by indexing.  Nothing on the port's paths calls them
-(fast2 draws the observations).
 """
 
 from __future__ import annotations
@@ -380,6 +374,17 @@ def _entity_at(states, tables, i, draw_mask, img_override, z_filter):
     return e, ok, img_t, e_slot
 
 
+def _tile_counts(ratio, r_w, r_h):
+    """tile_image's horizontal and vertical repeat counts (bag.cpp:840-869)
+    of a (w, h) rect for the aspect ratio ``ratio``."""
+    eps = fm.f32(1e-9)
+    n_th = torch.clamp(torch.where(ratio > 0, (r_w / (r_h * torch.abs(ratio) + eps)).to(I32), 1),
+                       min=1)
+    n_tv = torch.clamp(torch.where(ratio < 0, (r_h / (r_w * torch.abs(ratio) + eps)).to(I32), 1),
+                       min=1)
+    return n_th, n_tv
+
+
 def _composite_entities_gather(gd, cfg, states, tables, out, z_filter="all", res: int = RES):
     """Entities in draw order, each sampled per pixel (rotation, tiling,
     reflection, alpha).  The rotation's cos/sin are the double ``cos``/``sin``
@@ -472,8 +477,8 @@ def render_frame(gd, cfg, states, pack) -> torch.Tensor:
     """A 64x64 frame over the cached static layer; a moving view (whose
     static cache is invalid) takes the direct path.  The entities are drawn
     by the gather pass, where the reference package's ``render_frame``
-    takes its matmul pass (``_composite_entities_matmul`` below): that pass
-    draws unrotated, unadjusted sprites, which the gather pass covers."""
+    takes a matmul pass of unrotated, unadjusted sprites, which the gather
+    pass covers."""
     if gd.center_agent(cfg):
         return render_env(gd, cfg, states, pack)
     tables = get_gather_tables(gd, cfg, pack, states.done.device)
@@ -483,338 +488,3 @@ def render_frame(gd, cfg, states, pack) -> torch.Tensor:
     out = _paint_hud(gd, cfg, states, out)
     return to_frames(out)
 
-
-# ---------------------------------------------------------------------------
-# The reference package's matmul formulations (renderer.py:388-994 there)
-#
-# Its TPU paths sample nearest texels with one-hot products: each product
-# has exactly one term that is not a zero (or none, where the pixel is
-# masked), so each output is the texel itself, or 0.  Here the same texels
-# are picked by indexing and the masked ones set to 0, and every blend runs
-# over the same pixels in the same order, so the frames are the same bits.
-# ---------------------------------------------------------------------------
-
-
-class FastTables:
-    """The pack's fixed-size mips and the grid's slot tables on one
-    device."""
-
-    def __init__(self, gd, cfg, pack, device):
-        def t(a):
-            return torch.as_tensor(np.ascontiguousarray(a)).to(device)
-
-        self.R = int(pack.sprite_res)
-        self.BR = int(pack.bg_res)
-        self.sprite_mips = t(pack.sprite_mips)  # (n, R, R, 4) uint8
-        self.bg_mips = t(pack.bg_mips)  # (NB, BR, BR, 3) uint8
-        self.grid_slot_lut_themed = t(pack.grid_slot_lut_themed)  # (themes, types) slot + 1
-
-
-def get_fast_tables(gd, cfg, pack, device) -> FastTables:
-    cache = pack.__dict__.setdefault("_fast_tables", {})
-    key = str(torch.device(device))
-    if key not in cache:
-        cache[key] = FastTables(gd, cfg, pack, device)
-    return cache[key]
-
-
-def _texel_index(v, n) -> torch.Tensor:
-    """``clip(int(clip(v, 0, 0.9999) * n), 0, n - 1)`` for an int or an
-    int32 tensor ``n`` (per env, broadcasting against ``v``)."""
-    v = torch.clamp(v, 0.0, 0.9999)
-    if torch.is_tensor(n):
-        return torch.minimum(torch.clamp((v * n.to(F32)).to(I32), min=0), n - 1)
-    return torch.clamp((v * n).to(I32), 0, n - 1)
-
-
-def _tile_counts(ratio, r_w, r_h):
-    """tile_image's horizontal and vertical repeat counts (bag.cpp:840-869)
-    of a (w, h) rect for the aspect ratio ``ratio``."""
-    eps = fm.f32(1e-9)
-    n_th = torch.clamp(torch.where(ratio > 0, (r_w / (r_h * torch.abs(ratio) + eps)).to(I32), 1),
-                       min=1)
-    n_tv = torch.clamp(torch.where(ratio < 0, (r_h / (r_w * torch.abs(ratio) + eps)).to(I32), 1),
-                       min=1)
-    return n_th, n_tv
-
-
-def _paint_vel_info_batched(gd, cfg, states, out):
-    """``_paint_vel_info_batched`` of the reference package: the velocity
-    patch on a batch of 64x64 canvases, which is ``_paint_vel_info`` here
-    (at res 64 its pixel centres are the same floats)."""
-    return _paint_vel_info(gd, cfg, states, out)
-
-
-def _composite_entities_matmul(gd, cfg, states, pack, out, z_filter="all"):
-    """``_composite_entities_matmul`` of the reference package: entities in
-    draw order, each sampled separably from the full-resolution atlas over
-    the whole 64x64 canvas (no rotation and no rect adjustment: that path's
-    sprites), with tiling, reflection and alpha.  Each env draws its live
-    count of entities, as the reference's loop bound."""
-    tables = get_gather_tables(gd, cfg, pack, out.device)
-    ents = states.ents
-    order = _entity_draw_order(ents)
-    n_draw = ents.alive.sum(1)
-    telemetry.count("host_reads.renderer.kmax")
-    kmax = int(n_draw.max())
-    px = torch.arange(RES, dtype=F32, device=out.device) + 0.5
-    draw_mask = gd.entity_draw_mask(cfg, states)
-    img_override = gd.entity_image_override(cfg, states)
-    for k in range(kmax):
-        e, ok, img_t, e_slot = _entity_at(states, tables, order[:, k:k + 1], draw_mask,
-                                          img_override, z_filter)
-        r_x0, r_y0, r_w, r_h = _entity_rect(states, e)
-        slot = e_slot.clamp(min=0).to(_I64)
-        w, h = tables.dims[slot, 0][:, None], tables.dims[slot, 1][:, None]
-        u = (px - r_x0[:, None]) / r_w[:, None]  # (N, 64) along columns
-        v = (px - r_y0[:, None]) / r_h[:, None]  # along rows
-        in_x = (u >= 0) & (u < 1)
-        in_y = (v >= 0) & (v < 1)
-        ratio = gd.tile_ratio_for(img_t, e["rx"], e["ry"])
-        if ratio is not None:
-            n_th, n_tv = _tile_counts(ratio, r_w, r_h)
-            uraw = u * n_th.to(F32)[:, None]
-            u = torch.where((ratio > 0)[:, None], uraw - torch.floor(uraw), u)
-            vraw = v * n_tv.to(F32)[:, None]
-            v = torch.where((ratio < 0)[:, None], vraw - torch.floor(vraw), v)
-        su = _texel_index(u, w)
-        sv = _texel_index(v, h)
-        su = torch.where(e["is_reflected"][:, None], w - 1 - su, su)
-        spr = tables.atlas[slot[:, None, None], sv.to(_I64)[:, :, None],
-                           su.to(_I64)[:, None, :]].to(F32)
-        inside = in_y[:, :, None] & in_x[:, None, :] & ok[:, None, None]
-        spr = torch.where(inside[..., None], spr, 0.0)
-        a = fm.div_const(spr[..., 3], 255.0) * e["alpha"][:, None, None]
-        drawn = spr[..., :3] * a[..., None] + out * (1 - a[..., None])
-        out = torch.where((k < n_draw)[:, None, None, None], drawn, out)
-    return out
-
-
-def render_static_fast(gd, cfg, states, pack) -> torch.Tensor:
-    """``render_static_fast`` of the reference package -> (N, 64, 64, 3)
-    uint8: the background blit from the BR x BR mips (tiled vertically when
-    the game's ``bg_tile_ratio`` is negative), then, unless the game is
-    grid-dynamic, ``_grid_fast_one``."""
-    ft = get_fast_tables(gd, cfg, pack, states.done.device)
-    tables = get_gather_tables(gd, cfg, pack, states.done.device)
-    N, BR = states.num_envs, ft.BR
-    dev = states.done.device
-    out = torch.zeros((N, RES, RES, 3), dtype=F32, device=dev)
-    if cfg.use_backgrounds:
-        SX, SY, _, _ = _pixel_world_coords(states)
-        sxv, syv = SX[:, 0, :], SY[:, :, 0]  # (1, 64) column and row centres
-        mw = states.main_width.to(F32)[:, None]
-        mh = states.main_height.to(F32)[:, None]
-        unit, view_dim = states.unit[:, None], states.view_dim[:, None]
-        bgi = states.background_index.to(_I64)
-        m_x0 = -states.x_off[:, None]
-        m_y0 = (view_dim - mh) * unit + states.y_off[:, None]
-        m_w = mw * unit
-        m_h = mh * unit
-        if gd.bg_tile_ratio < 0:
-            n_t = torch.clamp((m_h / (m_w * fm.f32(-gd.bg_tile_ratio))).to(I32), min=1).to(F32)
-            u = (sxv - m_x0) / m_w
-            vraw = (syv - m_y0) / (m_h / n_t)
-            v = vraw - torch.floor(vraw)
-            in_x = (u >= 0) & (u < 1)
-            in_y = (syv >= m_y0) & (syv < m_y0 + m_h)
-        else:
-            dims = tables.bg_dims[bgi].to(F32)
-            bg_ar = (dims[:, 0] / dims[:, 1])[:, None]
-            world_ar = mw / mh
-            offset_x = states.bg_pct_x[:, None] * (bg_ar - world_ar)
-            bx0 = m_x0 + m_w * (-offset_x)
-            bw = m_w * (bg_ar / world_ar)
-            u = (sxv - bx0) / bw
-            v = (syv - m_y0) / m_h
-            in_x = (u >= 0) & (u < 1)
-            in_y = (v >= 0) & (v < 1)
-        su = torch.clamp((u * BR).to(I32), 0, BR - 1).to(_I64)
-        sv = torch.clamp((v * BR).to(I32), 0, BR - 1).to(_I64)
-        col = ft.bg_mips[bgi[:, None, None], sv[:, :, None], su[:, None, :]].to(F32)
-        out = torch.where((in_y[:, :, None] & in_x[:, None, :])[..., None], col, 0.0)
-    if not gd.grid_dynamic:
-        out = _grid_fast_one(gd, cfg, states, pack, out)
-    return to_frames(out)
-
-
-def _grid_fast_one(gd, cfg, states, pack, out) -> torch.Tensor:
-    """``_grid_fast_one`` of the reference package: the grid tiles over an
-    f32 canvas, sampled from the R x R sprite mips through each pixel's
-    cell slot (a moving view draws its window, out-of-grid cells as the
-    out-of-bounds object), then the colour-rect cells."""
-    ft = get_fast_tables(gd, cfg, pack, out.device)
-    R = ft.R
-    N = out.shape[0]
-    grid = states.grid
-    Hm, Wm = grid.shape[1], grid.shape[2]
-    gts = gd.grid_theme_state(cfg, states)
-    lut = ft.grid_slot_lut_themed  # (themes, types)
-    theme = (torch.zeros((N,), dtype=_I64, device=out.device) if gts is None
-             else gts.to(_I64).clamp(0, lut.shape[0] - 1))
-    lut = lut[theme]  # (N, types)
-    n_types = lut.shape[1]
-    cxi, cyi, cu, cv = _pixel_cells(states)  # (N, 64) each
-    in_cx = (cxi >= 0) & (cxi < states.main_width[:, None])
-    in_cy = (cyi >= 0) & (cyi < states.main_height[:, None])
-    env = torch.arange(N, device=out.device)[:, None, None]
-    cell = grid[env, cyi.clamp(0, Hm - 1).to(_I64)[:, :, None], cxi.clamp(0, Wm - 1).to(_I64)[:, None, :]]
-    in_grid_pix = in_cy[:, :, None] & in_cx[:, None, :]
-    slot_pix = torch.where(in_grid_pix, lut[env, cell.clamp(0, n_types - 1).to(_I64)], 0)
-    if gd.center_agent(cfg):
-        # the moving view's window and out-of-bounds cells (bag.cpp:928-939)
-        margin = states.visibility / 2 + 1
-        low_x = (states.center_x - margin).to(I32)[:, None]
-        high_x = (states.center_x + margin).to(I32)[:, None]
-        low_y = (states.center_y - margin).to(I32)[:, None]
-        high_y = (states.center_y + margin).to(I32)[:, None]
-        in_window = (((cyi >= low_y) & (cyi <= high_y))[:, :, None]
-                     & ((cxi >= low_x) & (cxi <= high_x))[:, None, :])
-        oob = lut[env[:, 0, 0], states.out_of_bounds_object.clamp(0, n_types - 1).to(_I64)]
-        slot_pix = torch.where(in_window & ~in_grid_pix, oob[:, None, None], slot_pix)
-        slot_pix = torch.where(in_window, slot_pix, 0)
-    tsu = _texel_index(cu, R).to(_I64)  # (N, 64) columns
-    tsv = _texel_index(cv, R).to(_I64)  # rows
-    tex = ft.sprite_mips[(slot_pix - 1).clamp(min=0).to(_I64), tsv[:, :, None], tsu[:, None, :]]
-    tex = torch.where((slot_pix > 0)[..., None], tex.to(F32), 0.0)
-    a = fm.div_const(tex[..., 3], 255.0)
-    out = tex[..., :3] * a[..., None] + out * (1 - a[..., None])
-    tables = get_gather_tables(gd, cfg, pack, out.device)
-    if tables.crect is not None:
-        type_pix = torch.where(in_grid_pix, cell, 0).clamp(0, tables.grid_image_lut.shape[0] - 1)
-        out = _grid_color_rects(tables, type_pix.to(_I64), in_grid_pix, cu[:, None, :],
-                                cv[:, :, None], out)
-    return out
-
-
-def render_static_dispatch(gd, cfg, states, pack) -> torch.Tensor:
-    """``render_static_dispatch`` of the reference package: the static
-    layer through ``render_static_fast``, or ``render_static_env`` for a
-    moving view."""
-    if gd.center_agent(cfg):
-        return render_static_env(gd, cfg, states, pack)
-    return render_static_fast(gd, cfg, states, pack)
-
-
-# the axis-aligned rotation classes' cos and sin (0, 90, 180, 270 degrees)
-_AXIS_COS = (1.0, 0.0, -1.0, 0.0)
-_AXIS_SIN = (0.0, 1.0, 0.0, -1.0)
-
-
-def render_frames(gd, cfg, states, pack) -> torch.Tensor:
-    """``render_frames`` of the reference package -> (N, 64, 64, 3) uint8.
-
-    Free-rotation games, and moving-view grid-dynamic ones, go through
-    ``render_env`` (as there).  Otherwise the entities composite over the
-    cached static layer (or, for a moving view, ``render_static_fast`` of
-    the frame): each sprite is sampled from the R x R mips into a
-    ``gd.sprite_tile``-sized screen tile (16 unless the game sets it) at
-    its box's clipped corner, axis rotations turning the texture, and
-    blended into that tile alone; the draw loop runs to the batch's largest
-    live count.  Grid-dynamic games draw their grid between the entities
-    under it and the rest; then the velocity patch and the HUD."""
-    if gd.entity_rotations == "free" or (gd.center_agent(cfg) and gd.grid_dynamic):
-        return render_env(gd, cfg, states, pack)
-    dev = states.done.device
-    ft = get_fast_tables(gd, cfg, pack, dev)
-    tables = get_gather_tables(gd, cfg, pack, dev)
-    R = ft.R
-    T = getattr(gd, "sprite_tile", 16)
-    ents = states.ents
-    N, E = ents.x.shape
-    if gd.center_agent(cfg):
-        out = render_static_fast(gd, cfg, states, pack).to(F32)
-    else:
-        out = states.static_layer.to(F32)
-    order = _entity_draw_order(ents)
-    telemetry.count("host_reads.renderer.kmax")
-    kmax = int(ents.alive.sum(1).max())
-    draw_mask = gd.entity_draw_mask(cfg, states)
-    img_override = gd.entity_image_override(cfg, states)
-    tloc = torch.arange(T, dtype=F32, device=dev)
-    env = torch.arange(N, device=dev)[:, None, None]
-    axis = gd.entity_rotations == "axis"
-    cos_lut = torch.tensor(_AXIS_COS, dtype=F32).to(dev)
-    sin_lut = torch.tensor(_AXIS_SIN, dtype=F32).to(dev)
-
-    def draw(k, out, z_filter):
-        e, ok, img_t, e_slot = _entity_at(states, tables, order[:, k:k + 1], draw_mask,
-                                          img_override, z_filter)
-        r_x0, r_y0, r_w, r_h = _entity_rect(states, e)
-        adj = gd.image_rect_adjust(img_t)
-        if adj is not None:
-            aox, aoy, asw, ash = adj
-            r_x0 = r_x0 + r_w * aox
-            r_y0 = r_y0 + r_h * aoy
-            r_w = r_w * asw
-            r_h = r_h * ash
-        if axis:
-            rk = torch.remainder(torch.round(fm.div_const(e["rotation"], np.pi / 2)).to(I32), 4)
-            rc, rs = cos_lut[rk.to(_I64)], sin_lut[rk.to(_I64)]
-            swap = (rk % 2) == 1
-        else:
-            rc, rs = torch.ones_like(r_w), torch.zeros_like(r_w)
-            swap = torch.zeros_like(ok)
-        cx = r_x0 + r_w / 2
-        cy = r_y0 + r_h / 2
-        # the rotated sprite's screen box (w and h swap at 90 and 270)
-        bb_w = torch.where(swap, r_h, r_w)
-        bb_h = torch.where(swap, r_w, r_h)
-        tx = torch.clamp(torch.floor(cx - bb_w / 2).to(I32), 0, RES - T)
-        ty = torch.clamp(torch.floor(cy - bb_h / 2).to(I32), 0, RES - T)
-        dx = tx[:, None].to(F32) + tloc + 0.5 - cx[:, None]  # (N, T) along columns
-        dy = ty[:, None].to(F32) + tloc + 0.5 - cy[:, None]  # along rows
-        # the inverse painter rotation: u = (c dx + s dy + w/2) / w,
-        # v = (-s dx + c dy + h/2) / h; each depends on one screen axis for
-        # the axis classes (90 and 270 swap the texture's axes)
-        sw, rc, rs = swap[:, None], rc[:, None], rs[:, None]
-        w2, h2 = r_w[:, None], r_h[:, None]
-        row = torch.where(sw, (rs * dy + w2 / 2) / w2, (rc * dy + h2 / 2) / h2)
-        col = torch.where(sw, (-rs * dx + h2 / 2) / h2, (rc * dx + w2 / 2) / w2)
-        in_x = (col >= 0) & (col < 1)
-        in_y = (row >= 0) & (row < 1)
-        ratio = gd.tile_ratio_for(img_t, e["rx"], e["ry"])
-        if ratio is not None:
-            # tiling only unrotated draws (bag.cpp:899-906)
-            n_th, n_tv = _tile_counts(ratio, r_w, r_h)
-            unrot = rk == 0 if axis else torch.ones_like(ok)
-            uraw = col * n_th.to(F32)[:, None]
-            col = torch.where((unrot & (ratio > 0))[:, None], uraw - torch.floor(uraw), col)
-            vraw = row * n_tv.to(F32)[:, None]
-            row = torch.where((unrot & (ratio < 0))[:, None], vraw - torch.floor(vraw), row)
-        su = _texel_index(col, R)
-        sv = _texel_index(row, R)
-        # reflection mirrors the texture's x axis: the column index, or the
-        # row index when the axes are swapped
-        refl = e["is_reflected"][:, None]
-        su = torch.where(refl & ~sw, R - 1 - su, su)
-        sv = torch.where(refl & sw, R - 1 - sv, sv)
-        slot = e_slot.clamp(min=0).to(_I64)[:, None, None]
-        ty_, tx_ = sv.to(_I64)[:, :, None], su.to(_I64)[:, None, :]
-        # (texture row, texture column), turned for the swapped classes
-        spr = torch.where(sw[..., None, None], ft.sprite_mips[slot, tx_, ty_],
-                          ft.sprite_mips[slot, ty_, tx_]).to(F32)  # (N, T, T, 4)
-        inside = in_y[:, :, None] & in_x[:, None, :] & ok[:, None, None]
-        spr = torch.where(inside[..., None], spr, 0.0)
-        a = fm.div_const(spr[..., 3], 255.0) * e["alpha"][:, None, None]
-        rows = (ty[:, None] + torch.arange(T, device=dev)).to(_I64)[:, :, None]
-        cols = (tx[:, None] + torch.arange(T, device=dev)).to(_I64)[:, None, :]
-        old = out[env, rows, cols]
-        out = out.clone()
-        out[env, rows, cols] = spr[..., :3] * a[..., None] + old * (1 - a[..., None])
-        return out
-
-    if gd.grid_dynamic:
-        # the static cache holds the background only: the entities under the
-        # grid, the grid (each frame), the rest (bag.cpp:921-958)
-        for k in range(kmax):
-            out = draw(k, out, "neg")
-        out = _grid_fast_one(gd, cfg, states, pack, out)
-        for k in range(kmax):
-            out = draw(k, out, "nonneg")
-    else:
-        for k in range(kmax):
-            out = draw(k, out, "all")
-    out = _paint_vel_info_batched(gd, cfg, states, out)
-    out = _paint_hud(gd, cfg, states, out)
-    return to_frames(out)

@@ -5,9 +5,10 @@ default configuration (PNG assets from a synthetic root).
 * ``render_env`` at res 128 for the six games of the card's render_mode
   phase (maze: static grid; miner: grid-dynamic; coinrun: center-agent view
   with adjusted sprite rects; jumper: HUD overlay; starpilot: the scrolling
-  background painter; caveflyer: free rotation), hard mode, 3 envs, on the
-  states of 24 random steps (every 8th), carried into the JAX package's
-  EnvState: bitwise equal;
+  background painter; caveflyer: free rotation) and for the two games whose
+  entities tile (dodgeball: lava walls along either axis; leaper: the finish
+  line), hard mode, 3 envs, on the states of 24 random steps (every 8th),
+  carried into the JAX package's EnvState: bitwise equal;
 * the ``render_mode="rgb_array"`` info frame for maze and coinrun: ``(N,
   512, 512, 3)`` uint8, bitwise equal to the JAX package's own expression
   (procgen_tpu/env.py:144-151: ``render_env`` at 1024, box-filtered in
@@ -40,6 +41,7 @@ from procgen_torch.env import ProcgenTorchEnv
 from procgen_torch.render import fast2, renderer
 from test_torch_assets import asset_root_fixture
 from test_torch_coinrun import JaxCarrier
+from test_torch_dodgeball import jax_x64_off  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
 
@@ -47,6 +49,7 @@ synth_root = asset_root_fixture()
 
 N = 3
 RENDER_MODE_GAMES = ("maze", "miner", "coinrun", "jumper", "starpilot", "caveflyer")
+TILING_GAMES = ("dodgeball", "leaper")
 
 
 def _reference(game, n=N, mode="hard"):
@@ -64,15 +67,23 @@ def _stepped(env, steps, every, seed=1):
             yield env.state
 
 
-@pytest.mark.parametrize("game", RENDER_MODE_GAMES)
-def test_render_env_matches_reference(synth_root, game):
-    """Exact: every uint8 value at res 128."""
+@pytest.mark.parametrize("game", RENDER_MODE_GAMES + TILING_GAMES)
+def test_render_env_matches_reference(synth_root, game, request):
+    """Exact: every uint8 value at res 128.  In the tiling games a tiled
+    entity is alive at every check, and the JAX package runs without x64,
+    as its fast mode does."""
+    if game in TILING_GAMES:
+        request.getfixturevalue("jax_x64_off")
     env = ProcgenTorchEnv(N, game, rand_seed=11, distribution_mode="hard", device="cpu",
                           render=False)
     jgd, jcfg, jpack, carry = _reference(game)
     j_render = jax.jit(jax.vmap(lambda s: j_renderer.render_env(jgd, jcfg, s, jpack, res=128)))
     for k, state in enumerate(_stepped(env, 24, 8)):
         got = renderer.render_env(env.gd, env.cfg, state, env.pack, res=128)
+        if game in TILING_GAMES:
+            ents = state.ents
+            ratio = env.gd.tile_ratio_for(ents.image_type, ents.rx, ents.ry)
+            assert ((ratio != 0) & ents.alive).any(1).all(), f"{game} at check {k}"
         assert got.shape == (N, 128, 128, 3) and got.dtype == torch.uint8
         want = np.asarray(j_render(carry(state)))
         np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{game} at check {k}")
